@@ -7,7 +7,9 @@ JAX package so each counterpart is easy to find:
 - ``core``     — config tree and presets (a copy of the JAX one)
 - ``ops``      — quadrant split/merge, and ``ops/cuda``: the hand-written
                  CUDA kernels that replace the Pallas TPU kernels
-- ``models``   — ResNet trunk, heads, QuadtreeCNN, registry, JAX weight import
+- ``models``   — ResNet trunk, heads, QuadtreeCNN, losses, registry, JAX
+                 weight import
+- ``train``    — the train and eval steps (AdamW, clip, freeze, NaN guard)
 - ``infer``    — fixed-batch ``Predictor`` and the HTTP server
 
 Entry points run on the card (``device=None`` → ``"cuda"``) and raise if

@@ -1,4 +1,5 @@
-"""CLI of the PyTorch port (train and eval come with the training slice).
+"""CLI of the PyTorch port (``train`` and ``eval`` come with the training
+loop; the train step itself is ``surya_tpu_torch.train``).
 
   python -m surya_tpu_torch list-presets
   python -m surya_tpu_torch serve CKPT [--preset P] [--port 8577] [--classes names.json]

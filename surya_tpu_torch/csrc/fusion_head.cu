@@ -1,11 +1,21 @@
-// Fused fusion-classifier head for Hopper (sm_90a), inference form:
-// logits = relu(x @ W1^T + b1) @ W2^T + b2, with the hidden activation kept
-// on chip.
+// Fused fusion-classifier head for Hopper (sm_90a):
+// logits = dropout(relu(x @ W1^T + b1)) @ W2^T + b2, with the hidden
+// activation kept on chip unless the caller asks for it.
 //
-// Replaces surya_tpu/ops/pallas/fusion_head.py::_fusion_head_kernel at
-// rate 0 without the h output. Numerics follow the Pallas kernel: f32
-// accumulation, b1 added in f32, h rounded to the compute dtype before the
-// second product, f32 logits.
+// Replaces surya_tpu/ops/pallas/fusion_head.py::_fusion_head_kernel, both
+// forms: the inference form (rate 0, no h output; the TRAIN = false
+// instantiations) and the training form with in-kernel dropout and the
+// post-dropout h written out as the backward's residual. Numerics follow
+// the Pallas kernel: f32 accumulation, b1 added in f32, a unit kept iff its
+// 32 random bits >= threshold = min(round(rate * 2^32), 2^32 - 1), kept
+// units scaled by 1/(1 - rate) in f32, then h rounded to the compute dtype
+// before the second product, f32 logits.
+//
+// Random bits: Philox4x32-10 keyed by the 64-bit seed (read from device
+// memory, so the host never waits for it), counter (row, hidden unit, 0, 0),
+// first output word. The mask is a pure function of (seed, row, unit): it
+// does not depend on the tiling. The TPU kernel seeds its hardware generator
+// per batch block; those bits cannot be reproduced here, only their law.
 //
 // Bound: at B=64 the head reads W1 (2688 x 5376, 28.9 MB in bf16) once and
 // does ~1.9 GFLOP, so it is bound by memory. The TPU kernel holds all of
@@ -17,7 +27,8 @@
 // CUDA-core FMA), applies b1 + ReLU, rounds h, and multiplies by its slice
 // of W2 into f32 partial logits (n_tiles, B, C). A second small launch
 // sums the partials in a fixed order and adds b2: deterministic, no
-// atomics, and h never reaches device memory.
+// atomics, and h never reaches device memory in the inference form.
+// Dropout is per hidden unit, so it lives inside a tile's epilogue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -28,22 +39,71 @@ namespace {
 using bf16 = __nv_bfloat16;
 constexpr int HT = 16;  // hidden units per block
 
+// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as
+// 1, 2, 3"): counter (row, unit, 0, 0), key (seed low, seed high); returns
+// the first of the four output words.
+__device__ __forceinline__ unsigned philox_bits(unsigned long long seed,
+                                                unsigned row, unsigned unit) {
+  unsigned c0 = row, c1 = unit, c2 = 0u, c3 = 0u;
+  unsigned k0 = static_cast<unsigned>(seed);
+  unsigned k1 = static_cast<unsigned>(seed >> 32);
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const unsigned hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c0;
+}
+
+// What the training form adds to a launch; all unused when TRAIN is false.
+struct TrainArgs {
+  void* h_out;                  // (B, H) in the compute dtype, or null
+  const long long* seed;        // device scalar; read only if threshold > 0
+  unsigned threshold;           // keep iff bits >= threshold; 0 = no dropout
+  float scale;                  // 1 / (1 - rate)
+};
+
 // ---- epilogue shared by both variants --------------------------------
 // hs: (rows, HT) f32 pre-activations in shared memory, leading dim ldh.
 // Writes partial[(tile*B + row)*C + c] = sum_j h[row][j] * w2[c][h0+j].
-template <typename T>
+template <typename T, bool TRAIN>
 __device__ void head_epilogue(float* hs, int ldh, int rows,
                               const float* __restrict__ b1,
                               const T* __restrict__ w2,
                               float* __restrict__ partial, int row0, int B,
-                              int H, int C) {
+                              int H, int C, TrainArgs ta) {
   const int h0 = blockIdx.x * HT;
   for (int idx = threadIdx.x; idx < rows * HT; idx += blockDim.x) {
     const int r = idx / HT, j = idx % HT;
     float h = 0.f;
     if (h0 + j < H) {
       h = fmaxf(hs[r * ldh + j] + b1[h0 + j], 0.f);
+      if constexpr (TRAIN) {
+        if (ta.threshold != 0u && h > 0.f) {
+          const unsigned bits =
+              philox_bits(static_cast<unsigned long long>(*ta.seed),
+                          static_cast<unsigned>(row0 + r),
+                          static_cast<unsigned>(h0 + j));
+          h = bits >= ta.threshold ? h * ta.scale : 0.f;
+        }
+      }
       if constexpr (sizeof(T) == 2) h = __bfloat162float(__float2bfloat16(h));
+      if constexpr (TRAIN) {
+        if (ta.h_out != nullptr && row0 + r < B) {
+          T* hp = static_cast<T*>(ta.h_out) +
+                  static_cast<size_t>(row0 + r) * H + h0 + j;
+          if constexpr (sizeof(T) == 2)
+            *hp = __float2bfloat16(h);
+          else
+            *hp = h;
+        }
+      }
     }
     hs[r * ldh + j] = h;
   }
@@ -78,10 +138,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(n));
 }
 
+template <bool TRAIN>
 __global__ void __launch_bounds__(128)
 head_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                  const float* __restrict__ b1, const bf16* __restrict__ w2,
-                 float* __restrict__ partial, int B, int D, int H, int C) {
+                 float* __restrict__ partial, int B, int D, int H, int C,
+                 TrainArgs ta) {
   using namespace nvcuda;
   __shared__ __align__(128) bf16 xs[2][RB16][LDS16];
   __shared__ __align__(128) bf16 ws[2][HT][LDS16];
@@ -135,17 +197,20 @@ head_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   wmma::store_matrix_sync(hs + warp * 16 * LDH16, acc, LDH16,
                           wmma::mem_row_major);
   __syncthreads();
-  head_epilogue<bf16>(hs, LDH16, RB16, b1, w2, partial, row0, B, H, C);
+  head_epilogue<bf16, TRAIN>(hs, LDH16, RB16, b1, w2, partial, row0, B, H, C,
+                             ta);
 }
 
 // ---- f32: CUDA-core FMA (exact f32 products, for parity checks) ---------
 constexpr int RB32 = 32;  // rows per block
 constexpr int KC32 = 64;
 
+template <bool TRAIN>
 __global__ void __launch_bounds__(128)
 head_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                 const float* __restrict__ b1, const float* __restrict__ w2,
-                float* __restrict__ partial, int B, int D, int H, int C) {
+                float* __restrict__ partial, int B, int D, int H, int C,
+                TrainArgs ta) {
   __shared__ float xs[RB32][KC32 + 1];
   __shared__ float ws[HT][KC32 + 1];
   __shared__ float hs[RB32 * HT];
@@ -178,7 +243,8 @@ head_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 #pragma unroll
   for (int i = 0; i < RB32 / 8; ++i) hs[(r0 + 8 * i) * HT + j] = acc[i];
   __syncthreads();
-  head_epilogue<float>(hs, HT, RB32, b1, w2, partial, row0, B, H, C);
+  head_epilogue<float, TRAIN>(hs, HT, RB32, b1, w2, partial, row0, B, H, C,
+                              ta);
 }
 
 // out[row][c] = b2[c] + sum over tiles, in tile order.
@@ -193,33 +259,51 @@ __global__ void head_reduce_kernel(const float* __restrict__ partial,
   out[idx] = s + b2[idx % C];
 }
 
+template <bool TRAIN>
+void launch_head(const void* x, const void* w1, const void* b1,
+                 const void* w2, void* partial, int B, int D, int H, int C,
+                 int is_bf16, TrainArgs ta, cudaStream_t s) {
+  const int n_tiles = (H + HT - 1) / HT;
+  if (is_bf16) {
+    dim3 grid(n_tiles, (B + RB16 - 1) / RB16);
+    head_bf16_kernel<TRAIN><<<grid, 128, 0, s>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+        static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+        static_cast<float*>(partial), B, D, H, C, ta);
+  } else {
+    dim3 grid(n_tiles, (B + RB32 - 1) / RB32);
+    head_f32_kernel<TRAIN><<<grid, 128, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w1),
+        static_cast<const float*>(b1), static_cast<const float*>(w2),
+        static_cast<float*>(partial), B, D, H, C, ta);
+  }
+}
+
 }  // namespace
 
 extern "C" int fusion_head_n_tiles(int H) { return (H + HT - 1) / HT; }
 
 // x (B,D), w1 (H,D), w2 (C,H) in one dtype (bf16 needs D % 8 == 0 and
 // 16-byte aligned rows; the wrapper checks); b1 (H,), b2 (C,) f32;
-// partial (n_tiles,B,C) f32 scratch; out (B,C) f32.
+// partial (n_tiles,B,C) f32 scratch; out (B,C) f32. Training form: h_out
+// (B,H) in the compute dtype or null; threshold > 0 turns dropout on with
+// the int64 seed at device address seed and scale = 1/(1-rate). With
+// h_out null and threshold 0 this is the inference launch.
 extern "C" int fusion_head_forward(const void* x, const void* w1,
                                    const void* b1, const void* w2,
                                    const void* b2, void* partial, void* out,
-                                   int B, int D, int H, int C, int is_bf16,
+                                   void* h_out, const void* seed, int B,
+                                   int D, int H, int C, int is_bf16,
+                                   unsigned threshold, float scale,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = (H + HT - 1) / HT;
-  if (is_bf16) {
-    dim3 grid(n_tiles, (B + RB16 - 1) / RB16);
-    head_bf16_kernel<<<grid, 128, 0, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-        static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-        static_cast<float*>(partial), B, D, H, C);
-  } else {
-    dim3 grid(n_tiles, (B + RB32 - 1) / RB32);
-    head_f32_kernel<<<grid, 128, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w1),
-        static_cast<const float*>(b1), static_cast<const float*>(w2),
-        static_cast<float*>(partial), B, D, H, C);
-  }
+  const TrainArgs ta{h_out, static_cast<const long long*>(seed), threshold,
+                     scale};
+  if (h_out != nullptr || threshold != 0u)
+    launch_head<true>(x, w1, b1, w2, partial, B, D, H, C, is_bf16, ta, s);
+  else
+    launch_head<false>(x, w1, b1, w2, partial, B, D, H, C, is_bf16, ta, s);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   head_reduce_kernel<<<(B * C + 255) / 256, 256, 0, s>>>(

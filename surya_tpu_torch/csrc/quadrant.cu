@@ -2,8 +2,11 @@
 // shared 3x3 conv, bias, ReLU, VALID 2x2/2 max pool and the (q, ph, pw, c)
 // flatten, in one launch.
 //
-// Replaces surya_tpu/ops/pallas/quadrant.py::_quadrant_kernel (forward,
-// without the pre-pool activation output).
+// Replaces surya_tpu/ops/pallas/quadrant.py::_quadrant_kernel, both forms:
+// the inference form (act == nullptr) and the training form, which also
+// writes the post-ReLU, pre-pool map act (B, H, H, Cout) in full-map layout
+// as the backward's residual (the Pallas kernel's a_ref). The pool takes
+// the f32 values and act is rounded once, as there.
 //
 // Bound: at the flagship shape (B=64, 14x14x256 -> 128) the conv work the
 // pool reads is ~5.4 GFLOP against ~7.6 MB of traffic, so it is bound by
@@ -12,6 +15,8 @@
 // zero border in shared memory (the border IS the per-quadrant padding,
 // so no masks). Only the 2hp x 2hp conv outputs the VALID pool reads
 // (36 of 49 at the flagship) count toward the bound. Accumulation is f32.
+// The training form needs all hq x hq conv outputs (49) and writes
+// B*H*H*Cout more values; its bound counts both.
 //
 // Two bodies, chosen by what the shapes allow:
 // - bf16 with Cin % 16 == 0, Cout % 16 == 0 and quadrants of at most
@@ -28,9 +33,14 @@
 //   rows, 8 warps, 128 blocks at B=64), so each weight slab it streams
 //   through its 3-stage cp.async ring feeds twice the rows; accumulators
 //   stay in registers, and the epilogue pools from an f32 tile in shared
-//   memory.
+//   memory. With act the GEMM covers hq rows of the padded quadrant, not
+//   2*hp (the same 64 GEMM rows at the flagship), and the epilogue also
+//   writes the tile's hq x hq valid positions.
 // - otherwise (f32, or odd channel counts): CUDA-core FMA, one thread per
 //   pooled anchor x 4 output channels, its 2x2 conv outputs in registers.
+//   With act the anchors cover ceil(hq/2)^2 windows, so an odd quadrant's
+//   last row and column are computed too (and the tile grows by the zero
+//   row and column those windows run into).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,23 +64,26 @@ from_f<__nv_bfloat16>(float v) {
 }
 
 // grid.x = B*4 (sample, quadrant); grid.y = Cout tiles of ncg*CO_PER.
-// thread t < hp*hp*ncg owns anchor t / ncg and channels
-// co0 = tile*ncg*CO_PER + (t % ncg)*CO_PER .. +CO_PER.
+// thread t < hpa*hpa*ncg owns the 2x2 window at anchor t / ncg and channels
+// co0 = tile*ncg*CO_PER + (t % ncg)*CO_PER .. +CO_PER. hpa windows a side:
+// hq/2 without act (the pooled ones), ceil(hq/2) with act; side = the
+// tile's side, at least 2*hpa + 2.
 template <typename T>
 __global__ void quadrant_kernel(const T* __restrict__ x,
                                 const T* __restrict__ w,
                                 const float* __restrict__ bias,
-                                T* __restrict__ out, int H, int Cin, int Cout,
-                                int ncg, int ci_chunk) {
-  extern __shared__ float tile[];  // [(hq+2)^2][ci_chunk], zero border
-  const int hq = H / 2, hp = hq / 2, side = hq + 2;
+                                T* __restrict__ out, T* __restrict__ act,
+                                int H, int Cin, int Cout, int ncg,
+                                int ci_chunk, int hpa, int side) {
+  extern __shared__ float tile[];  // [side^2][ci_chunk], zero border
+  const int hq = H / 2, hp = hq / 2;
   const int n = blockIdx.x / 4, q = blockIdx.x % 4;
   const int h0 = (q / 2) * hq, w0 = (q % 2) * hq;
   const int t = threadIdx.x;
   const int anchor = t / ncg;
-  const int ph = anchor / hp, pw = anchor % hp;
+  const int ph = anchor / hpa, pw = anchor % hpa;
   const int co0 = (blockIdx.y * ncg + t % ncg) * CO_PER;
-  const bool active = anchor < hp * hp && co0 < Cout;
+  const bool active = anchor < hpa * hpa && co0 < Cout;
   const bool vec = (Cout % CO_PER == 0);
 
   float acc[2][2][CO_PER];
@@ -132,6 +145,7 @@ __global__ void quadrant_kernel(const T* __restrict__ x,
   }
   if (!active) return;
 
+  const bool pooled = ph < hp && pw < hp;  // a window the VALID pool keeps
   const size_t out_dim = static_cast<size_t>(4) * hp * hp * Cout;
   T* op = out + n * out_dim + (static_cast<size_t>(q) * hp * hp +
                                ph * hp + pw) * Cout + co0;
@@ -139,11 +153,19 @@ __global__ void quadrant_kernel(const T* __restrict__ x,
   for (int c = 0; c < CO_PER; ++c) {
     if (co0 + c >= Cout) break;
     const float bv = bias[co0 + c];
-    float m = fmaxf(acc[0][0][c] + bv, 0.f);
-    m = fmaxf(m, fmaxf(acc[0][1][c] + bv, 0.f));
-    m = fmaxf(m, fmaxf(acc[1][0][c] + bv, 0.f));
-    m = fmaxf(m, fmaxf(acc[1][1][c] + bv, 0.f));
-    op[c] = from_f<T>(m);
+    float m = 0.f;
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const float v = fmaxf(acc[a][b][c] + bv, 0.f);
+        m = fmaxf(m, v);
+        const int y = 2 * ph + a, xx = 2 * pw + b;
+        if (act != nullptr && y < hq && xx < hq)
+          act[((static_cast<size_t>(n) * H + h0 + y) * H + w0 + xx) * Cout +
+              co0 + c] = from_f<T>(v);
+      }
+    if (pooled) op[c] = from_f<T>(m);
   }
 }
 
@@ -198,15 +220,21 @@ struct MmaPlan {
   size_t tile_bytes, smem;
 };
 
-bool mma_fits(int H, int Cin, int Cout) {
-  const int m_pad = (2 * (H / 4) * (H / 2 + 2) + 15) / 16 * 16;
-  return Cin % 16 == 0 && Cout % 16 == 0 && m_pad <= 256;
+// GEMM rows of one quadrant: conv rows 0 .. 2*hp-1 at the padded width for
+// the pool alone, all hq rows when the act output is asked for.
+int mma_rows(int H, bool with_act) {
+  const int rows = with_act ? H / 2 : 2 * (H / 4);
+  return (rows * (H / 2 + 2) + 15) / 16 * 16;
 }
 
-MmaPlan mma_plan(int H, int Cin, int Cout) {
-  const int side = H / 2 + 2, hp = H / 4;
+bool mma_fits(int H, int Cin, int Cout, bool with_act) {
+  return Cin % 16 == 0 && Cout % 16 == 0 && mma_rows(H, with_act) <= 256;
+}
+
+MmaPlan mma_plan(int H, int Cin, int Cout, bool with_act) {
+  const int side = H / 2 + 2;
   MmaPlan p;
-  p.m_pad = (2 * hp * side + 15) / 16 * 16;
+  p.m_pad = mma_rows(H, with_act);
   p.qb = p.m_pad <= 32 ? 4 : (p.m_pad <= 64 ? 2 : 1);
   p.warps = p.qb * p.m_pad / 16;
   p.rows = side * side;  // the padded quadrant, then zero rows the
@@ -228,10 +256,13 @@ MmaPlan mma_plan(int H, int Cin, int Cout) {
 }
 
 // grid.x = B*4/qb (sample, quadrant group); grid.y = Cout tiles of nt.
+// ACT: also write act (B, H, H, Cout); the plan was made with with_act.
+template <bool ACT>
 __global__ void __launch_bounds__(512)
 quadrant_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                      const float* __restrict__ bias, bf16* __restrict__ out,
-                     int H, int Cin, int Cout, MmaPlan p) {
+                     bf16* __restrict__ act, int H, int Cin, int Cout,
+                     MmaPlan p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int hq = H / 2, hp = hq / 2, side = hq + 2;
   // row pitches of an odd number of 16-byte units: the 8 rows of an
@@ -331,8 +362,23 @@ quadrant_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
   __syncthreads();
 
+  const int ncols = nf * 16;
+  if constexpr (ACT) {  // bias + ReLU at every valid position, rounded once
+    const int per_a = hq * hq * ncols;
+    for (int idx = threadIdx.x; idx < p.qb * per_a; idx += blockDim.x) {
+      const int qq = idx / per_a, rem = idx - qq * per_a;
+      const int pos = rem / ncols, j = rem - pos * ncols;
+      const int y = pos / hq, xx = pos - y * hq, q = q0 + qq;
+      const float v =
+          fmaxf(C[(qq * p.m_pad + y * side + xx) * ldc + j] + bias[n0 + j],
+                0.f);
+      act[((static_cast<size_t>(n) * H + (q / 2) * hq + y) * H +
+           (q % 2) * hq + xx) * Cout + n0 + j] = __float2bfloat16(v);
+    }
+  }
+
   // bias + ReLU + VALID 2x2 max over rows p, p+1, p+side, p+side+1
-  const int ncols = nf * 16, per_q = hp * hp * ncols;
+  const int per_q = hp * hp * ncols;
   const size_t out_dim = static_cast<size_t>(4) * hp * hp * Cout;
   for (int idx = threadIdx.x; idx < p.qb * per_q; idx += blockDim.x) {
     const int qq = idx / per_q, rem = idx - qq * per_q;
@@ -348,30 +394,38 @@ quadrant_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
+template <bool ACT>
 int launch_mma(const void* x, const void* w, const void* bias, void* out,
-                int B, int H, int Cin, int Cout, cudaStream_t stream) {
-  const MmaPlan p = mma_plan(H, Cin, Cout);
+                void* act, int B, int H, int Cin, int Cout,
+                cudaStream_t stream) {
+  const MmaPlan p = mma_plan(H, Cin, Cout, ACT);
   const cudaError_t e = cudaFuncSetAttribute(
-      quadrant_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      quadrant_mma_kernel<ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(p.smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(B * 4 / p.qb, (Cout + p.nt - 1) / p.nt);
-  quadrant_mma_kernel<<<grid, p.warps * 32, p.smem, stream>>>(
+  quadrant_mma_kernel<ACT><<<grid, p.warps * 32, p.smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), H, Cin, Cout,
-      p);
+      static_cast<const float*>(bias), static_cast<bf16*>(out),
+      static_cast<bf16*>(act), H, Cin, Cout, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---- CUDA-core body ---------------------------------------------------------
 template <typename T>
-int launch(const void* x, const void* w, const void* bias, void* out, int B,
-           int H, int Cin, int Cout, cudaStream_t stream) {
-  const int hq = H / 2, hp = hq / 2, side = hq + 2;
+int launch(const void* x, const void* w, const void* bias, void* out,
+           void* act, int B, int H, int Cin, int Cout, cudaStream_t stream) {
+  const int hq = H / 2;
+  const int hpa = act != nullptr ? (hq + 1) / 2 : hq / 2;
+  const int side = act != nullptr ? 2 * hpa + 2 : hq + 2;
   const int groups = (Cout + CO_PER - 1) / CO_PER;
+  // The act form holds more live values a thread: its blocks stay at 256
+  // threads, which its register count allows (the wrapper keeps
+  // hpa * hpa <= 256 there).
+  const int max_threads = act != nullptr ? 256 : 1024;
   int ncg = groups < 32 ? groups : 32;
-  if (ncg > 1024 / (hp * hp)) ncg = 1024 / (hp * hp);
-  const int threads = ((hp * hp * ncg + 31) / 32) * 32;
+  if (ncg > max_threads / (hpa * hpa)) ncg = max_threads / (hpa * hpa);
+  const int threads = ((hpa * hpa * ncg + 31) / 32) * 32;
   int ci_chunk = SMEM_BYTES / (side * side * static_cast<int>(sizeof(float)));
   if (ci_chunk > Cin) ci_chunk = Cin;
   const size_t smem = static_cast<size_t>(side) * side * ci_chunk *
@@ -379,25 +433,29 @@ int launch(const void* x, const void* w, const void* bias, void* out, int B,
   dim3 grid(B * 4, (groups + ncg - 1) / ncg);
   quadrant_kernel<T><<<grid, threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<T*>(out), H, Cin, Cout,
-      ncg, ci_chunk);
+      static_cast<const float*>(bias), static_cast<T*>(out),
+      static_cast<T*>(act), H, Cin, Cout, ncg, ci_chunk, hpa, side);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x (B,H,H,Cin) NHWC, w (3,3,Cin,Cout) HWIO in x's dtype, bias (Cout,) f32,
-// out (B, 4*(H/4)^2*Cout) in x's dtype. Requires even H >= 4,
-// (H/4)^2 <= 1024 and 16-byte aligned x and w (the wrapper checks).
-// Returns cudaGetLastError().
+// out (B, 4*(H/4)^2*Cout) in x's dtype; act (B,H,H,Cout) in x's dtype, or
+// null for the inference form. Requires even H in [4, 128] (at most 64
+// with act) and 16-byte aligned x and w (the wrapper checks). Returns
+// cudaGetLastError().
 extern "C" int quadrant_forward(const void* x, const void* w,
-                                const void* bias, void* out, int B, int H,
-                                int Cin, int Cout, int is_bf16,
+                                const void* bias, void* out, void* act,
+                                int B, int H, int Cin, int Cout, int is_bf16,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && mma_fits(H, Cin, Cout))
-    return launch_mma(x, w, bias, out, B, H, Cin, Cout, s);
+  const bool with_act = act != nullptr;
+  if (is_bf16 && mma_fits(H, Cin, Cout, with_act))
+    return with_act
+               ? launch_mma<true>(x, w, bias, out, act, B, H, Cin, Cout, s)
+               : launch_mma<false>(x, w, bias, out, act, B, H, Cin, Cout, s);
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, w, bias, out, B, H, Cin, Cout, s);
-  return launch<float>(x, w, bias, out, B, H, Cin, Cout, s);
+    return launch<__nv_bfloat16>(x, w, bias, out, act, B, H, Cin, Cout, s);
+  return launch<float>(x, w, bias, out, act, B, H, Cin, Cout, s);
 }

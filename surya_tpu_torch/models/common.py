@@ -6,6 +6,10 @@ plain version for a CPU tensor.
 
 Layers are ``nn.Linear`` with the flax names (``fc1``, ``fc2``); weights
 are cast to the compute dtype at each call (a no-op once cast).
+
+Dropout never touches torch's global generator: in train mode every
+random draw comes from the ``torch.Generator`` the caller passes (the
+counterpart of flax's ``"dropout"`` stream), on the tensors' device.
 """
 
 from __future__ import annotations
@@ -35,6 +39,18 @@ def apply_mode_ablation(mode: str, images, feats):
     return images, feats
 
 
+def dropout_generator(generator, rate: float, training: bool):
+    """The generator to draw a dropout mask from, or None when no mask is
+    drawn (eval mode or rate 0). Train mode with rate > 0 needs one."""
+    if not training or rate <= 0.0:
+        return None
+    if generator is None:
+        raise ValueError(
+            "train mode with dropout > 0 needs an explicit torch.Generator "
+            "(on the inputs' device); the global generator is never used")
+    return generator
+
+
 def reset_dense(layer: nn.Linear, generator=None) -> None:
     """flax Dense init: lecun_normal kernel, zero bias."""
     lecun_normal_(layer.weight, layer.in_features, generator)
@@ -52,10 +68,16 @@ class NumericalMLP(nn.Module):
         self.fc2 = nn.Linear(2 * in_dim, out_dim)
         self.dropout, self.dtype = dropout, dtype
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         dt = self.dtype
         x = F.linear(x.to(dt), self.fc1.weight.to(dt), self.fc1.bias.to(dt))
-        x = F.dropout(F.relu(x), self.dropout, self.training)
+        x = F.relu(x)
+        g = dropout_generator(generator, self.dropout, self.training)
+        if g is not None:   # flax Dropout: keep with 1 - rate, scale kept
+            keep = torch.rand(x.shape, generator=g,
+                              device=x.device) >= self.dropout
+            x = torch.where(keep, x / (1.0 - self.dropout),
+                            torch.zeros_like(x))
         return F.linear(x, self.fc2.weight.to(dt), self.fc2.bias.to(dt))
 
 
@@ -71,11 +93,18 @@ class FusionClassifier(nn.Module):
         self.fc2 = nn.Linear(hidden, num_classes)
         self.dropout, self.dtype = dropout, dtype
 
-    def forward(self, x):
-        rate = self.dropout if self.training else 0.0
+    def forward(self, x, generator=None):
+        g = dropout_generator(generator, self.dropout, self.training)
+        rate, seed = 0.0, None
+        if g is not None:
+            # per-step scalar seed from the dropout stream, drawn on x's
+            # device: the kernel reads it there, the host never waits
+            rate = self.dropout
+            seed = torch.randint(0, 2 ** 62, (1,), generator=g,
+                                 device=x.device, dtype=torch.int64)
         return fusion_head(x.to(self.dtype).contiguous(), self.fc1.weight,
                            self.fc1.bias, self.fc2.weight, self.fc2.bias,
-                           rate=rate)
+                           rate=rate, seed=seed)
 
 
 def fuse_by_mode(mode: str, image_feat, num_feat):

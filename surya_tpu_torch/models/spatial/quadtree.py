@@ -10,7 +10,10 @@ one shared 3×3 conv 256→128 + bias + ReLU, 2×2 max pool, flatten) →
 The quadrant block always calls ``ops.cuda.quadrant.quadrant_process``
 and the head always calls ``ops.cuda.fusion_head.fusion_head``: each
 launches its CUDA kernel for a CUDA tensor and runs its plain version for
-a CPU tensor. Inputs and feature maps are NHWC at the module boundary,
+a CPU tensor; under autograd each runs its training form and the backward
+that mirrors JAX's custom VJP. In train mode with dropout > 0 ``forward``
+needs a ``torch.Generator`` on the inputs' device, from which the numerical
+MLP draws its mask and the head its seed. Inputs and feature maps are NHWC at the module boundary,
 as in JAX; the flatten order is JAX's (q, ph, pw, c), so JAX classifier
 weights carry over unpermuted.
 """
@@ -84,8 +87,10 @@ class QuadtreeCNN(nn.Module):
             if isinstance(m, nn.Linear):
                 reset_dense(m, generator)
 
-    def forward(self, images: torch.Tensor, numerical: torch.Tensor):
-        """images (B, H, W, 3) NHWC, numerical (B, F) → (B, C) f32 logits."""
+    def forward(self, images: torch.Tensor, numerical: torch.Tensor,
+                generator: torch.Generator | None = None):
+        """images (B, H, W, 3) NHWC, numerical (B, F) → (B, C) f32 logits.
+        ``generator``: the dropout stream (train mode with dropout > 0)."""
         img_feat = num_feat = None
         if self.mode != "numerical_only":
             outs = self.trunk(images, upto="layer4", capture=("layer3",))
@@ -96,5 +101,6 @@ class QuadtreeCNN(nn.Module):
                                          self.quadrant_conv_bias)
             img_feat = torch.cat([global_feat, quad_flat.to(self.dtype)], -1)
         if self.mode != "image_only":
-            num_feat = self.numerical_mlp(numerical)
-        return self.classifier(fuse_by_mode(self.mode, img_feat, num_feat))
+            num_feat = self.numerical_mlp(numerical, generator)
+        return self.classifier(fuse_by_mode(self.mode, img_feat, num_feat),
+                               generator)

@@ -88,6 +88,7 @@ def build_all(names) -> None:
 
 
 P, I = ctypes.c_void_p, ctypes.c_int  # pointer/stream, int argument
+U, F, L = ctypes.c_uint32, ctypes.c_float, ctypes.c_longlong
 
 
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:

@@ -62,12 +62,12 @@ def test_bf16_follows_pallas_rounding():
 
 
 def test_dropout_raises_on_cuda_path(monkeypatch):
-    """Serving never passes rate > 0; the kernel path refuses it until
-    the training slice adds in-kernel dropout."""
+    """In-kernel dropout needs its seed: rate > 0 without one is refused
+    before anything is built or launched, as in JAX."""
     monkeypatch.setattr(thead, "on_cuda", lambda t: True)
     monkeypatch.setattr(thead._build, "load", pytest.fail)
     x, w1, b1, w2, b2 = _params(2, 16, 8, 2)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="requires a seed"):
         thead.fusion_head(*map(torch.from_numpy,
                                (x, w1.T.copy(), b1, w2.T.copy(), b2)),
                           rate=0.5)

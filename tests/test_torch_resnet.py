@@ -69,9 +69,17 @@ def test_upto_stops_early_and_rejects_unknown_stage():
 
 
 def test_train_mode_bn_is_refused():
+    """Train mode runs since the training slice (tests/test_torch_bn_train.py
+    holds it against flax); what BatchNorm still refuses is a batch with one
+    value per channel, which has no variance to normalise with."""
     tm = make_resnet("resnet18", dtype=torch.float32).train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tm(torch.zeros(1, 32, 32, 3))
+    before = tm.bn1.running_mean.clone()
+    with torch.no_grad():
+        tm(torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(0)),
+           upto="layer3")
+    assert not torch.equal(tm.bn1.running_mean, before)
+    with pytest.raises(ValueError, match="more than one value"):
+        tm(torch.zeros(1, 32, 32, 3))       # layer4's map is 1x1 at batch 1
 
 
 def test_init_matches_jax_distribution():

@@ -27,6 +27,7 @@ from surya_tpu_torch.models.from_jax import (
     load_npz_variables,
 )
 from test_torch_resnet import numpy_variables
+from torch_port_fixtures import one_torch_thread  # noqa: F401
 
 SIZE, CLASSES = 64, ["c0", "c1", "c2", "c3", "c4"]
 
