@@ -19,7 +19,10 @@ read just after:
   (256, 224, 224, 3) bf16, then the two stem-BN kernels) against
   ``F.batch_norm`` + ReLU on the same map.
 
-It times kernels, serving and the train step with CUDA events. One JSON
+It times kernels, serving and the train step with CUDA events; each
+main-path kernel in turns with its library yardstick, after the same L2
+flush, with the median of the per-pair ratio, its launch plan, and the
+HGMMA count of its bf16 body read from the built library's SASS. One JSON
 line per phase; then the card's name and power limit as ``nvidia-smi``
 reports them, the ``kernels`` line, and the result line
 ``{"ok": true, "device": {...}}`` last. Any failed check raises, and the
@@ -49,9 +52,19 @@ import torch.nn.functional as F
 PEAK_BYTES_S, PEAK_BF16_FLOP_S = 3.35e12, 989e12
 TRAIN_BATCH, TRAIN_STEPS = 256, 20
 
+# first: the serving path's; (4, 14, 1024, 128): a resnet50 trunk's
+# layer3; then the edges of the wgmma tilings: B in {1, 3, 256}, Cout 16,
+# 64 and 256, Cin 32 and 1024, H 8, 14 and 28 (quadrants of 4, 7, 14)
 QUADRANT_SHAPES = [(64, 14, 256, 128), (3, 28, 32, 16), (8, 8, 16, 8),
-                   (4, 14, 1024, 128)]  # last: a resnet50 trunk's layer3
-HEAD_SHAPES = [(64, 5376, 2688, 8), (5, 256, 128, 3)]
+                   (4, 14, 1024, 128), (1, 14, 256, 128), (3, 8, 32, 16),
+                   (256, 14, 256, 128), (2, 14, 256, 64), (2, 14, 256, 256),
+                   (2, 28, 1024, 64), (3, 14, 32, 16)]
+# first: the serving path's; then B in {1, 63, 100, 256, 257}, H a
+# multiple of the 128-unit tile or not (2688, 40), D off the 64-wide K
+# stage (264), C = 3
+HEAD_SHAPES = [(64, 5376, 2688, 8), (5, 256, 128, 3), (1, 5376, 2688, 8),
+               (63, 256, 128, 8), (100, 264, 40, 5), (256, 5376, 2688, 8),
+               (257, 512, 2688, 3)]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max |kernel - plain| / max |plain|
 
 
@@ -116,7 +129,8 @@ def compare(got, plain_f32):
 def check_kernels(quadrant, fusion_head):
     """Each kernel against its plain version on the same inputs: f32 to
     1e-4 relative; bf16 against the plain version run in f32 on the same
-    bf16-rounded inputs, to 2e-2 relative."""
+    bf16-rounded inputs, to 2e-2 relative. A second launch on the same
+    inputs must give the same bits."""
     results, failed = {}, []
     cases = []
     for shape in QUADRANT_SHAPES + [(1, 8, 4, 4, "ones")]:
@@ -130,22 +144,25 @@ def check_kernels(quadrant, fusion_head):
             ones = shape[-1] == "ones"
             args = quadrant_inputs(*shape[:4], dtype, ones=ones)
             got = quadrant.quadrant_process(*args)
+            again = quadrant.quadrant_process(*args)
             want = quadrant.quadrant_process_plain(
                 *(a.float() for a in args))
             ok_shape = got.shape == want.shape and got.dtype == dtype
         else:
             args = head_inputs(*shape, dtype)
             got = fusion_head.fusion_head(*args)
+            again = fusion_head.fusion_head(*args)
             want = fusion_head.fusion_head_plain(*(a.float() for a in args))
             ok_shape = got.shape == want.shape and got.dtype == torch.float32
         torch.cuda.synchronize()
         err, rel = compare(got, want)
         dname = str(dtype).removeprefix("torch.")
-        ok = ok_shape and rel <= TOL[dname] and bool(
+        same = bool(torch.equal(got, again))
+        ok = ok_shape and same and rel <= TOL[dname] and bool(
             torch.isfinite(got.float()).all())
         row = {"phase": "check", "kernel": name, "shape": list(shape),
                "dtype": dname, "max_abs_err": err, "max_rel_err": rel,
-               "tol": TOL[dname], "ok": ok}
+               "tol": TOL[dname], "same_bits_twice": same, "ok": ok}
         emit(row)
         results[(name, tuple(shape), dname)] = row
         if not ok:
@@ -250,10 +267,19 @@ def serve_phase(quadrant, fusion_head, card):
 # timing
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, flush=None, reps=20):
+# About 0.5 ms of the card's clock: a spin queued before each timed launch,
+# so that the host's enqueue of the call (30-125 us through Python and the
+# wrappers, measured on the chip machine) is over before the start event
+# and the events time the device's work alone.
+HIDE_HOST_CYCLES = 1_000_000
+
+
+def time_ms(fn, flush=None, reps=20, hide_host=True):
     """Median device time of ``fn`` over ``reps`` launches, each timed by
     CUDA events after a write of ``flush`` that evicts the 50 MB L2, as
-    the serving path (trunk between heads) leaves it cold."""
+    the serving path (trunk between heads) leaves it cold. Without
+    ``hide_host`` the events also count the time the card waits for the
+    host to enqueue ``fn``."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -261,6 +287,8 @@ def time_ms(fn, flush=None, reps=20):
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        if hide_host:
+            torch.cuda._sleep(HIDE_HOST_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -271,14 +299,53 @@ def time_ms(fn, flush=None, reps=20):
     return statistics.median(times)
 
 
-def time_phase(quadrant, fusion_head, card):
+def time_pair(kernel_fn, library_fn, flush, reps=20):
+    """The kernel and its library yardstick in turns, each launch timed by
+    CUDA events after the same L2-evicting write of ``flush`` (and the same
+    spin that hides the host's enqueue): the median
+    of each and the median of the per-pair ratio kernel / library, so
+    that a drift of the card between launches moves both sides of a
+    pair."""
+    for _ in range(3):
+        kernel_fn()
+        library_fn()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for _ in range(reps):
+        for fn, out in zip((kernel_fn, library_fn), times):
+            flush.zero_()
+            torch.cuda._sleep(HIDE_HOST_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+    ratios = [k / lib for k, lib in zip(*times)]
+    return (statistics.median(times[0]), statistics.median(times[1]),
+            statistics.median(ratios))
+
+
+def timed_row(kernel_fn, plain_fn, library_fn, flush, nbytes, flops, plan):
+    ms, library_ms, ratio = time_pair(kernel_fn, library_fn, flush)
+    bound_bytes, bound_ops = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOP_S
+    return {"ms": ms, "plain_ms": time_ms(plain_fn, flush),
+            "library_ms": library_ms, "ratio_vs_library_median": ratio,
+            "bytes": nbytes, "flops": flops,
+            "bound_ms": max(bound_bytes, bound_ops) * 1e3,
+            "bound_by": "bytes" if bound_bytes > bound_ops else "operations",
+            "plan": plan}
+
+
+def time_phase(quadrant, fusion_head, card, hgmma):
     from surya_tpu_torch.ops.quadtree import quadrant_split
 
-    bw, bf16_peak = PEAK_BYTES_S, PEAK_BF16_FLOP_S
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     bf = torch.bfloat16
-    rows = {}
+    rows, shapes = {}, {}
 
+    # the inference forms at the serving batch
     b, h, cin, cout = QUADRANT_SHAPES[0]
     fmap, kernel, bias = quadrant_inputs(b, h, cin, cout, bf)
     hp = h // 4
@@ -286,40 +353,30 @@ def time_phase(quadrant, fusion_head, card):
     w_oihw = kernel.permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
     bias_bf = bias.to(bf)
-    nbytes = (fmap.numel() * 2 + kernel.numel() * 2 + bias.numel() * 4
-              + b * 4 * hp * hp * cout * 2)
-    flops = 2 * b * 4 * (2 * hp) ** 2 * 9 * cin * cout     # pooled outputs
-    rows["quadrant"] = {
-        "ms": time_ms(lambda: quadrant.quadrant_process(
-            fmap, kernel, bias), flush),
-        "plain_ms": time_ms(lambda: quadrant.quadrant_process_plain(
-            fmap, kernel, bias), flush),
-        "library_ms": time_ms(lambda: F.max_pool2d(F.relu(F.conv2d(
-            q, w_oihw, bias_bf, padding=1)), 2, 2), flush),
-        "bytes": nbytes, "flops": flops,
-        "bound_ms": max(nbytes / bw, flops / bf16_peak) * 1e3,
-        "bound_by": "bytes" if nbytes / bw > flops / bf16_peak
-        else "operations"}
+    shapes["quadrant"] = (b, h, cin, cout)
+    rows["quadrant"] = timed_row(
+        lambda: quadrant.quadrant_process(fmap, kernel, bias),
+        lambda: quadrant.quadrant_process_plain(fmap, kernel, bias),
+        lambda: F.max_pool2d(F.relu(F.conv2d(q, w_oihw, bias_bf,
+                                             padding=1)), 2, 2), flush,
+        nbytes=(fmap.numel() * 2 + kernel.numel() * 2 + bias.numel() * 4
+                + b * 4 * hp * hp * cout * 2),
+        flops=2 * b * 4 * (2 * hp) ** 2 * 9 * cin * cout,  # pooled outputs
+        plan=quadrant.launch_plan(b, h, cin, cout, False))
 
     b, d, hdim, c = HEAD_SHAPES[0]
     x, w1, b1, w2, b2 = head_inputs(b, d, hdim, c, bf)
     b1_bf, b2_bf = b1.to(bf), b2.to(bf)
-    nbytes = ((x.numel() + w1.numel() + w2.numel()) * 2
-              + (b1.numel() + b2.numel() + b * c) * 4)
-    flops = 2 * b * hdim * (d + c)
-    rows["fusion_head"] = {
-        "ms": time_ms(lambda: fusion_head.fusion_head(
-            x, w1, b1, w2, b2), flush),
-        "plain_ms": time_ms(lambda: fusion_head.fusion_head_plain(
-            x, w1, b1, w2, b2), flush),
-        "library_ms": time_ms(lambda: torch.addmm(
-            b2_bf, torch.relu(torch.addmm(b1_bf, x, w1.t())), w2.t()),
-            flush),
-        "bytes": nbytes, "flops": flops,
-        "bound_ms": max(nbytes / bw, flops / bf16_peak) * 1e3,
-        "bound_by": "bytes" if nbytes / bw > flops / bf16_peak
-        else "operations"}
-    shapes = {"quadrant": QUADRANT_SHAPES[0], "fusion_head": HEAD_SHAPES[0]}
+    shapes["fusion_head"] = (b, d, hdim, c)
+    rows["fusion_head"] = timed_row(
+        lambda: fusion_head.fusion_head(x, w1, b1, w2, b2),
+        lambda: fusion_head.fusion_head_plain(x, w1, b1, w2, b2),
+        lambda: torch.addmm(b2_bf, torch.relu(torch.addmm(b1_bf, x, w1.t())),
+                            w2.t()), flush,
+        nbytes=((x.numel() + w1.numel() + w2.numel()) * 2
+                + (b1.numel() + b2.numel() + b * c) * 4),
+        flops=2 * b * hdim * (d + c),
+        plan=fusion_head.launch_plan(b, d, hdim))
 
     # the training forms at the train step's batch: all hq x hq conv
     # outputs and the act map; dropout and the h output
@@ -327,25 +384,21 @@ def time_phase(quadrant, fusion_head, card):
     _, h, cin, cout = QUADRANT_SHAPES[0]
     fmap, kernel, bias = quadrant_inputs(b, h, cin, cout, bf)
     q = quadrant_split(fmap).permute(0, 3, 1, 2)
-    nbytes = (fmap.numel() * 2 + kernel.numel() * 2 + bias.numel() * 4
-              + b * 4 * hp * hp * cout * 2 + b * h * h * cout * 2)
-    flops = 2 * b * h * h * 9 * cin * cout                 # every position
 
     def library_quadrant_train():
         act = F.relu(F.conv2d(q, w_oihw, bias_bf, padding=1))
         return F.max_pool2d(act, 2, 2), act
 
     shapes["quadrant_train"] = (b, h, cin, cout)
-    rows["quadrant_train"] = {
-        "ms": time_ms(lambda: quadrant.quadrant_process_with_act(
-            fmap, kernel, bias), flush),
-        "plain_ms": time_ms(lambda: quadrant.quadrant_process_plain(
-            fmap, kernel, bias, with_act=True), flush),
-        "library_ms": time_ms(library_quadrant_train, flush),
-        "bytes": nbytes, "flops": flops,
-        "bound_ms": max(nbytes / bw, flops / bf16_peak) * 1e3,
-        "bound_by": "bytes" if nbytes / bw > flops / bf16_peak
-        else "operations"}
+    rows["quadrant_train"] = timed_row(
+        lambda: quadrant.quadrant_process_with_act(fmap, kernel, bias),
+        lambda: quadrant.quadrant_process_plain(fmap, kernel, bias,
+                                                with_act=True),
+        library_quadrant_train, flush,
+        nbytes=(fmap.numel() * 2 + kernel.numel() * 2 + bias.numel() * 4
+                + b * 4 * hp * hp * cout * 2 + b * h * h * cout * 2),
+        flops=2 * b * h * h * 9 * cin * cout,              # every position
+        plan=quadrant.launch_plan(b, h, cin, cout, True))
 
     _, d, hdim, c = HEAD_SHAPES[0]
     x, w1, b1, w2, b2 = head_inputs(b, d, hdim, c, bf)
@@ -353,29 +406,54 @@ def time_phase(quadrant, fusion_head, card):
     seed = torch.tensor([1234], dtype=torch.int64, device="cuda")
     keep = torch.rand(b, hdim, device="cuda", generator=torch.Generator(
         device="cuda").manual_seed(0)) >= 0.5
-    nbytes = ((x.numel() + w1.numel() + w2.numel() + b * hdim) * 2
-              + (b1.numel() + b2.numel() + b * c) * 4 + 8)
-    flops = 2 * b * hdim * (d + c)
     shapes["fusion_head_train"] = (b, d, hdim, c)
-    rows["fusion_head_train"] = {
-        "ms": time_ms(lambda: fusion_head.fusion_head_with_h(
-            x, w1, b1, w2, b2, rate=0.5, seed=seed), flush),
-        "plain_ms": time_ms(lambda: fusion_head.fusion_head_plain(
-            x, w1, b1, w2, b2, 0.5, keep, with_h=True), flush),
+    rows["fusion_head_train"] = timed_row(
+        lambda: fusion_head.fusion_head_with_h(x, w1, b1, w2, b2, rate=0.5,
+                                               seed=seed),
+        lambda: fusion_head.fusion_head_plain(x, w1, b1, w2, b2, 0.5, keep,
+                                              with_h=True),
         # a yardstick only: F.dropout draws from the global generator
-        "library_ms": time_ms(lambda: torch.addmm(b2_bf, F.dropout(
-            torch.relu(torch.addmm(b1_bf, x, w1.t())), 0.5, True), w2.t()),
-            flush),
-        "bytes": nbytes, "flops": flops,
-        "bound_ms": max(nbytes / bw, flops / bf16_peak) * 1e3,
-        "bound_by": "bytes" if nbytes / bw > flops / bf16_peak
-        else "operations"}
+        lambda: torch.addmm(b2_bf, F.dropout(torch.relu(torch.addmm(
+            b1_bf, x, w1.t())), 0.5, True), w2.t()), flush,
+        nbytes=((x.numel() + w1.numel() + w2.numel() + b * hdim) * 2
+                + (b1.numel() + b2.numel() + b * c) * 4 + 8),
+        flops=2 * b * hdim * (d + c),
+        plan=fusion_head.launch_plan(b, d, hdim))
     after = clocks()
     for name, row in rows.items():
+        row["hgmma_in_bf16_body"] = hgmma[name.removesuffix("_train")]
         emit({"phase": "time", "kernel": name, "dtype": "bfloat16",
               "clocks_after": after, "shape": list(shapes[name]), **row,
               **card})
     return rows
+
+
+def hgmma_counts():
+    """HGMMA instructions in the SASS of each bf16 wgmma body, read with
+    cuobjdump from the built library: proof that wgmma is what runs."""
+    import os
+
+    from torch.utils.cpp_extension import CUDA_HOME
+    from surya_tpu_torch.ops.cuda import _build
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    counts = {}
+    for lib, body in (("quadrant", "quadrant_wgmma_kernel"),
+                      ("fusion_head", "head_wgmma_kernel")):
+        sass = subprocess.run([tool, "-sass", str(_build._lib_path(lib))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        n, inside = 0, False
+        for line in sass.splitlines():
+            if "Function :" in line:
+                inside = body in line
+            elif inside and "HGMMA" in line:
+                n += 1
+        counts[lib] = n
+    emit({"phase": "sass", "hgmma": counts})
+    if not all(counts.values()):
+        raise AssertionError(f"a bf16 body has no HGMMA: {counts}")
+    return counts
 
 
 def forward_split(predictor, images, feats, card):
@@ -385,9 +463,10 @@ def forward_split(predictor, images, feats, card):
     with torch.inference_mode():
         x = torch.from_numpy(images[:64]).cuda().float() / 255.0
         f = torch.from_numpy(feats[:64]).cuda()
-        fwd = time_ms(lambda: model(x, f))
+        # host enqueue included: the forward waits on its ~60 launches
+        fwd = time_ms(lambda: model(x, f), hide_host=False)
         trunk = time_ms(lambda: model.trunk(
-            x, upto="layer4", capture=("layer3",)))
+            x, upto="layer4", capture=("layer3",)), hide_host=False)
     emit({"phase": "forward_split", "batch": 64, "forward_ms": fwd,
           "trunk_ms": trunk, **card})
     return fwd, trunk
@@ -414,11 +493,15 @@ def serve_throughput(predictor, images, feats, card, runs=3):
 # ---------------------------------------------------------------------------
 
 # last shape: the train step's own; (2, 6, ..) has odd 3x3 quadrants on the
-# CUDA-core body, (2, 30, ..) 15x15 quadrants on the tensor-core body
+# CUDA-core body, (2, 30, ..) 15x15 quadrants on the wgmma body; then the
+# tilings' edges: B 1 and 64, Cout 64 and 256, Cin 32 and 1024, H 8 and 28
 QUADRANT_TRAIN_SHAPES = [(16, 14, 256, 128), (3, 28, 32, 16), (2, 6, 4, 2),
-                         (2, 30, 16, 16), (TRAIN_BATCH, 14, 256, 128)]
+                         (2, 30, 16, 16), (1, 14, 256, 128), (3, 8, 32, 64),
+                         (2, 14, 1024, 256), (64, 14, 256, 128),
+                         (2, 28, 256, 16), (TRAIN_BATCH, 14, 256, 128)]
 HEAD_TRAIN_SHAPES = [(64, 256, 512, 8), (8, 64, 32, 8), (70, 264, 40, 5),
-                     (TRAIN_BATCH, 5376, 2688, 8)]
+                     (1, 5376, 2688, 8), (100, 264, 40, 3),
+                     (257, 512, 2688, 8), (TRAIN_BATCH, 5376, 2688, 8)]
 # relL2 of a gradient against autograd through the plain version in f32 on
 # the same rounded inputs. f32: both sides sum the same products in another
 # order. bf16: the kernel path rounds cotangents and gradients to bf16.
@@ -463,6 +546,7 @@ def check_quadrant_train(quadrant):
             fmap, kernel, bias = quadrant_inputs(*shape, dtype)
             k32 = kernel.float()        # f32 parameter, values as rounded
             out, act = quadrant.quadrant_process_with_act(fmap, k32, bias)
+            out2, act2 = quadrant.quadrant_process_with_act(fmap, k32, bias)
             want_out, want_act = quadrant.quadrant_process_plain(
                 fmap.float(), k32, bias, with_act=True)
             torch.cuda.synchronize()
@@ -471,8 +555,10 @@ def check_quadrant_train(quadrant):
             row = {"phase": "check", "kernel": "quadrant_train",
                    "shape": list(shape), "dtype": dname, "max_abs_err": err,
                    "max_rel_err": rel, "act_max_rel_err": act_rel,
-                   "tol": TOL[dname]}
-            ok = (out.dtype == dtype and act.dtype == dtype
+                   "tol": TOL[dname], "same_bits_twice": bool(
+                       torch.equal(out, out2) and torch.equal(act, act2))}
+            ok = (row["same_bits_twice"] and out.dtype == dtype
+                  and act.dtype == dtype
                   and act.shape == want_act.shape
                   and max(rel, act_rel) <= TOL[dname])
             if shape[0] <= 16:
@@ -526,7 +612,7 @@ def check_head_train(fusion_head, rate=0.5, seed=1234):
             w1f, w2f = w1.float(), w2.float()   # f32 parameters, as rounded
             logits, h = fusion_head.fusion_head_with_h(
                 x, w1f, b1, w2f, b2, rate=rate, seed=seed)
-            _, h_same = fusion_head.fusion_head_with_h(
+            logits_same, h_same = fusion_head.fusion_head_with_h(
                 x, w1f, b1, w2f, b2, rate=rate,
                 seed=torch.tensor([seed], dtype=torch.int64, device="cuda"))
             _, h_diff = fusion_head.fusion_head_with_h(
@@ -554,11 +640,13 @@ def check_head_train(fusion_head, rate=0.5, seed=1234):
                    "logits_vs_h_rel_err": logit_rel,
                    "mask_equals_philox_reference": mask_ok,
                    "same_seed_same_mask": bool(torch.equal(h, h_same)),
+                   "same_bits_twice": bool(torch.equal(logits, logits_same)),
                    "other_seed_other_mask": not torch.equal(h, h_diff),
                    "max_abs_err": err, "max_rel_err": rel,
                    "h_max_rel_err": h_rel, "tol": tol}
             ok = (0.4 < frac < 0.6 and kept_rel <= tol and logit_rel <= tol
                   and mask_ok and row["same_seed_same_mask"]
+                  and row["same_bits_twice"]
                   and row["other_seed_other_mask"] and rel <= tol
                   and h_rel <= tol and h.dtype == dtype
                   and logits.dtype == torch.float32)
@@ -979,6 +1067,7 @@ def main() -> int:
     _build.build_all(KERNELS)
     emit({"phase": "build", "kernels": list(KERNELS),
           "seconds": time.perf_counter() - t0})
+    hgmma = hgmma_counts()
 
     checks = check_kernels(quadrant, fusion_head)
     quadrant_train = check_quadrant_train(quadrant)
@@ -986,7 +1075,7 @@ def main() -> int:
     check_stem_bn(stem_bn)
     predictor, images, feats, serve_launches = serve_phase(
         quadrant, fusion_head, card)
-    times = time_phase(quadrant, fusion_head, card)
+    times = time_phase(quadrant, fusion_head, card, hgmma)
     forward_split(predictor, images, feats, card)
     serve_throughput(predictor, images, feats, card)
     del predictor

@@ -5,37 +5,41 @@
 // Replaces surya_tpu/ops/pallas/quadrant.py::_quadrant_kernel, both forms:
 // the inference form (act == nullptr) and the training form, which also
 // writes the post-ReLU, pre-pool map act (B, H, H, Cout) in full-map layout
-// as the backward's residual (the Pallas kernel's a_ref). The pool takes
-// the f32 values and act is rounded once, as there.
+// as the backward's residual (the Pallas kernel's a_ref). Outputs are
+// rounded once, as there: the pool of the rounded values is the rounded
+// pool of the f32 values, since rounding is monotone.
 //
-// Bound: at the flagship shape (B=64, 14x14x256 -> 128) the conv work the
-// pool reads is ~5.4 GFLOP against ~7.6 MB of traffic, so it is bound by
-// arithmetic. The design keeps every input byte on chip once: one block
-// per (sample, quadrant, Cout tile) stages its quadrant with a one-pixel
-// zero border in shared memory (the border IS the per-quadrant padding,
-// so no masks). Only the 2hp x 2hp conv outputs the VALID pool reads
-// (36 of 49 at the flagship) count toward the bound. Accumulation is f32.
-// The training form needs all hq x hq conv outputs (49) and writes
-// B*H*H*Cout more values; its bound counts both.
+// Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s): the conv work the pool
+// reads is 5.4 GFLOP at B=64 (14x14x256 -> 128) against 7.6 MB, so it is
+// bound by operations (0.0055 ms); the training form at B=256 computes
+// all 49 conv outputs of a quadrant and writes act: 29.6 GFLOP, 41.5 MB,
+// 0.030 ms. Every input byte is needed once; the weights (590 KB) are
+// re-read by every block, from L2.
 //
-// Two bodies, chosen by what the shapes allow:
+// Two bodies, chosen by shape alone:
 // - bf16 with Cin % 16 == 0, Cout % 16 == 0 and quadrants of at most
-//   15x15 (every trunk the models use): tensor cores through mma.sync
-//   m16n8k16 (f32 accumulate), fragments loaded with ldmatrix (.trans for
-//   the weights, which sit in shared memory as HWIO rows with Cout
-//   contiguous: WMMA's row-major B loads of that layout measured 3x slower
-//   than cuDNN). The conv is an implicit GEMM whose rows
-//   are output positions at the PADDED width (row p = y*side + x), so each
-//   tap's A tile is the staged input shifted by dh*side + dw rows with one
-//   uniform stride: no im2col copy. Rows at x >= 2hp are computed and
-//   dropped (64 rows for 36 outputs at the flagship); the tensor cores have
-//   the rate to spare. A block takes two quadrants at the flagship (128
-//   rows, 8 warps, 128 blocks at B=64), so each weight slab it streams
-//   through its 3-stage cp.async ring feeds twice the rows; accumulators
-//   stay in registers, and the epilogue pools from an f32 tile in shared
-//   memory. With act the GEMM covers hq rows of the padded quadrant, not
-//   2*hp (the same 64 GEMM rows at the flagship), and the epilogue also
-//   writes the tile's hq x hq valid positions.
+//   15x15 (every trunk the models use): an implicit GEMM on wgmma. Its
+//   rows are output positions at the PADDED width (row p = y*side + x),
+//   so each tap's A tile is the staged padded quadrant shifted by
+//   dh*side + dw rows: no im2col copy. That shift breaks the 8-row core-
+//   matrix alignment a shared-memory A descriptor needs, so A comes from
+//   registers (wgmma's register form, fragments loaded with ldmatrix from
+//   the swizzled tile, the swizzle undone in the address). B, the weights,
+//   is wgmma's shared-memory operand: an HWIO slab (Cin rows, Cout
+//   contiguous) is MN-major, which wgmma reads through its transpose-B
+//   flag. TMA brings both in: the padded quadrants per Cin chunk of 64
+//   (double-buffered; the zero border is TMA's out-of-bounds fill over a
+//   5-D view of x in which each quadrant's own rows and columns are
+//   dimensions), the weight slabs through an mbarrier ring of up to 8
+//   stages; one thread of a producer warpgroup, which hands its registers
+//   to the consumers, issues every load. Two consumer warpgroups own 1 or 2
+//   m64 row blocks each: at the flagship a block holds all four quadrants
+//   of a sample (256 GEMM rows per weight slab, half the L2 weight traffic
+//   of 128), and where that leaves fewer than 120 blocks (B=64) the plan
+//   halves the Cout tile instead. Rows at x >= 2hp (or hq) are computed
+//   and dropped. The epilogue adds the bias, applies ReLU, rounds once to
+//   a bf16 tile in shared memory, and writes act and the VALID 2x2 pool
+//   (rows p, p+1, p+side, p+side+1) with 16-byte stores.
 // - otherwise (f32, or odd channel counts): CUDA-core FMA, one thread per
 //   pooled anchor x 4 output channels, its 2x2 conv outputs in registers.
 //   With act the anchors cover ceil(hq/2)^2 windows, so an odd quadrant's
@@ -44,6 +48,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -169,246 +175,413 @@ __global__ void quadrant_kernel(const T* __restrict__ x,
   }
 }
 
-// ---- bf16 tensor-core body ----------------------------------------------
+// ---- bf16 body: wgmma with A from registers, weights by TMA ---------------
 using bf16 = __nv_bfloat16;
-constexpr int WM_NF = 8;               // 16-wide column groups per warp
-constexpr int WM_STAGES = 3;           // cp.async ring of weight slabs
-constexpr int WM_BUDGET = 200 * 1024;  // dynamic shared memory per block
+using namespace hopper;
+constexpr int QW_MAX_STAGES = 8;     // weight-slab ring
+constexpr int QW_THREADS = 384;      // two consumer warpgroups + producer
+constexpr int QW_MIN_BLOCKS = 120;   // of the card's 132 SMs
+constexpr int QW_BUDGET = 220 * 1024;
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));  // 0 bytes read → zeros
-}
-
-// Four 8x8 b16 tiles; lane t gives the address of row t % 16 at column
-// offset (t / 16) * 8 of a 16x16 block. Plain: the mma A fragment of a
-// row-major (m, k) block. Transposed: the B fragments of two n8 tiles of a
-// row-major (k, n) block ({r0, r1} for columns 0-7, {r2, r3} for 8-15).
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4],
-                                          unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Shapes of one launch. A block owns qb quadrants of one sample (qb = 4,
-// 2 or 1, so its A rows come to at most 128 where the map allows), one
-// warp per (quadrant, 16-row fragment), each warp all nt columns.
-struct MmaPlan {
-  int qb, m_pad, rows, nt, ks, cc, warps;
-  size_t tile_bytes, smem;
+struct WgPlan {
+  int mq;           // m64 row blocks per quadrant (1, 2 or 4)
+  int mb;           // m64 row blocks per consumer warpgroup (1 or 2)
+  int qpc;          // whole quadrants per block: 2 * mb / mq
+  int nt;           // Cout tile, wgmma N (16, 32, 64 or 128)
+  int cc;           // Cin chunk (64, 32 or 16): one swizzled tile row
+  int in_bytes;     // one quadrant's staged chunk, 1024-aligned
+  int slab_bytes;   // one weight slab (cc x nt), and its ring stride
+  int slab_stride;
+  int ldc;          // bf16 row pitch of the epilogue tile
+  int stages;       // weight-ring depth: what the shared memory allows
+  int bar_off;      // mbarriers, after the larger of ring and epilogue
+  int grid_x, grid_y, smem;
 };
 
-// GEMM rows of one quadrant: conv rows 0 .. 2*hp-1 at the padded width for
-// the pool alone, all hq rows when the act output is asked for.
-int mma_rows(int H, bool with_act) {
-  const int rows = with_act ? H / 2 : 2 * (H / 4);
-  return (rows * (H / 2 + 2) + 15) / 16 * 16;
+int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// GEMM rows of one quadrant at the padded width: conv rows 0 .. 2*hp-1
+// for the pool alone, all hq rows when the act output is asked for.
+int quad_rows(int H, bool with_act) {
+  const int hq = H / 2;
+  return (with_act ? hq : 2 * (hq / 2)) * (hq + 2);
 }
 
-bool mma_fits(int H, int Cin, int Cout, bool with_act) {
-  return Cin % 16 == 0 && Cout % 16 == 0 && mma_rows(H, with_act) <= 256;
+bool wg_fits(int H, int Cin, int Cout, bool with_act) {
+  return Cin % 16 == 0 && Cout % 16 == 0 && quad_rows(H, with_act) <= 256;
 }
 
-MmaPlan mma_plan(int H, int Cin, int Cout, bool with_act) {
-  const int side = H / 2 + 2;
-  MmaPlan p;
-  p.m_pad = mma_rows(H, with_act);
-  p.qb = p.m_pad <= 32 ? 4 : (p.m_pad <= 64 ? 2 : 1);
-  p.warps = p.qb * p.m_pad / 16;
-  p.rows = side * side;  // the padded quadrant, then zero rows the
-  if (p.m_pad + 2 * side + 2 > p.rows)  // shifted A tiles run into
-    p.rows = p.m_pad + 2 * side + 2;
-  p.nt = Cout < 16 * WM_NF ? Cout : 16 * WM_NF;
-  p.ks = Cin % 64 == 0 ? 64 : (Cin % 32 == 0 ? 32 : 16);
-  const size_t bbytes = static_cast<size_t>(WM_STAGES) * p.ks * (p.nt + 8) * 2;
-  const size_t per_ch = static_cast<size_t>(p.qb) * p.rows * 2;
-  int cc = static_cast<int>((WM_BUDGET - bbytes) / per_ch) - 8;
-  cc = cc / p.ks * p.ks;
-  p.cc = cc > Cin ? Cin : (cc < p.ks ? p.ks : cc);
-  size_t tile = per_ch * (p.cc + 8);
-  const size_t cbytes = static_cast<size_t>(p.qb) * p.m_pad * (p.nt + 4) * 4;
-  if (cbytes > tile) tile = cbytes;  // C reuses the input tiles' space
-  p.tile_bytes = (tile + 127) / 128 * 128;
-  p.smem = p.tile_bytes + bbytes;
+// Whole quadrants per block, two consumer warpgroups of mb m64 blocks
+// each: 256 GEMM rows (four quadrants at the flagship) where that still
+// gives 120 blocks, else a Cout tile of half the width, else 128 rows.
+WgPlan wg_plan(int B, int H, int Cin, int Cout, bool with_act) {
+  const int hq = H / 2, side = hq + 2;
+  WgPlan p;
+  p.mq = (quad_rows(H, with_act) + 63) / 64;
+  if (p.mq == 3) p.mq = 4;
+  p.cc = Cin % 64 == 0 ? 64 : (Cin % 32 == 0 ? 32 : 16);
+  const int nt0 = Cout % 128 == 0 ? 128
+                  : Cout % 64 == 0 ? 64
+                  : Cout % 32 == 0 ? 32 : 16;
+  const int cand[4][2] = {{2, nt0}, {2, nt0 / 2}, {1, nt0}, {1, nt0 / 2}};
+  long best = -1;
+  for (const auto& c : cand) {
+    if (c[1] < 16 || 2 * c[0] < p.mq) continue;
+    const long blocks =
+        static_cast<long>((B * 4 * p.mq + 2 * c[0] - 1) / (2 * c[0])) *
+        (Cout / c[1]);
+    if (blocks > best) {
+      best = blocks;
+      p.mb = c[0];
+      p.nt = c[1];
+    }
+    if (blocks >= QW_MIN_BLOCKS) {
+      p.mb = c[0];
+      p.nt = c[1];
+      break;
+    }
+  }
+  p.qpc = 2 * p.mb / p.mq;
+  // the padded quadrant, then the rows the shifted A tiles run into
+  int rows = side * side;
+  if (p.mq * 64 + 2 * side + 2 > rows) rows = p.mq * 64 + 2 * side + 2;
+  p.in_bytes = round_up(rows * p.cc * 2, 1024);
+  p.slab_bytes = p.cc * p.nt * 2;
+  p.slab_stride = round_up(p.slab_bytes, 1024);
+  p.ldc = p.nt + 8;
+  p.stages = (QW_BUDGET - 2 * p.qpc * p.in_bytes) / p.slab_stride;
+  if (p.stages > QW_MAX_STAGES) p.stages = QW_MAX_STAGES;
+  const int ring = 2 * p.qpc * p.in_bytes + p.stages * p.slab_stride;
+  const int epi = p.qpc * p.mq * 64 * p.ldc * 2;
+  p.bar_off = round_up(ring > epi ? ring : epi, 8);
+  p.smem = 1024 + p.bar_off + (2 * p.stages + 4) * 8;
+  p.grid_x = (B * 4 + p.qpc - 1) / p.qpc;
+  p.grid_y = Cout / p.nt;
   return p;
 }
 
-// grid.x = B*4/qb (sample, quadrant group); grid.y = Cout tiles of nt.
-// ACT: also write act (B, H, H, Cout); the plan was made with with_act.
-template <bool ACT>
-__global__ void __launch_bounds__(512)
-quadrant_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                     const float* __restrict__ bias, bf16* __restrict__ out,
-                     bf16* __restrict__ act, int H, int Cin, int Cout,
-                     MmaPlan p) {
-  extern __shared__ __align__(128) unsigned char smem[];
+// byte offset within a tile written by TMA with a (row pitch)-byte swizzle
+// from a 1024-aligned base: 16-byte unit bits [4, 4+b) ^= bits [7, 7+b)
+__device__ __forceinline__ uint32_t swz(uint32_t off, uint32_t mask) {
+  return off ^ (((off >> 7) & mask) << 4);
+}
+
+template <int NT>
+__device__ __forceinline__ void wgmma_rs(float (&d)[NT / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (NT == 128) wgmma_rs_n128(d, a, db);
+  else if constexpr (NT == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (NT == 32) wgmma_rs_n32(d, a, db);
+  else wgmma_rs_n16(d, a, db);
+}
+
+// grid (ceil(4B / qpc), Cout / NT), 384 threads. Warpgroups 0-1 consume;
+// warpgroup 2 produces: it gives its registers to the consumers and one of
+// its threads issues every TMA load. Per Cin chunk (double-buffered) the
+// block stages its qpc padded quadrants, then walks the 9 taps: slab
+// (tap, chunk) of the weights arrives through the ring; each consumer
+// warpgroup multiplies A fragments (ldmatrix at the tap's row shift) into
+// MB register accumulators of m64 x NT, and loads the next slab's
+// fragments while this slab's wgmma run. ACT: also write act (B,H,H,Cout).
+template <int NT, int MB, bool ACT>
+__global__ void __launch_bounds__(QW_THREADS, 1)
+quadrant_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap,
+                      const float* __restrict__ bias, bf16* __restrict__ out,
+                      bf16* __restrict__ act, int B, int H, int Cin, int Cout,
+                      WgPlan p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* in_buf = smem;  // [2][qpc][in_bytes]
+  unsigned char* ring = smem + 2 * p.qpc * p.in_bytes;
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(smem + p.bar_off);
+  uint64_t* w_empty = w_full + p.stages;
+  uint64_t* in_full = w_empty + p.stages;
+  uint64_t* in_empty = in_full + 2;
   const int hq = H / 2, hp = hq / 2, side = hq + 2;
-  // row pitches of an odd number of 16-byte units: the 8 rows of an
-  // ldmatrix tile fall in distinct banks
-  const int lda = p.cc + 8, ldb = p.nt + 8, ldc = p.nt + 4;
-  bf16* tile = reinterpret_cast<bf16*>(smem);   // (qb, rows, lda)
-  float* C = reinterpret_cast<float*>(smem);    // after the K loop
-  bf16* Bs = reinterpret_cast<bf16*>(smem + p.tile_bytes);  // ring
-  const int groups = 4 / p.qb;
-  const int n = blockIdx.x / groups, q0 = (blockIdx.x % groups) * p.qb;
-  const int n0 = blockIdx.y * p.nt;
-  const int nf = min(p.nt, Cout - n0) / 16;
-  const int warp = threadIdx.x / 32;
-  const int wq = warp / (p.m_pad / 16), mf = warp % (p.m_pad / 16);
-  const int lane = threadIdx.x % 32;
-  const int lrow = lane % 16, lcol = (lane / 16) * 8;  // ldmatrix address
+  const int quad0 = blockIdx.x * p.qpc;  // first (sample * 4 + quadrant)
+  const int n0 = blockIdx.y * NT;
+  const int nch = Cin / p.cc, nk = p.cc / 16, steps = 9 * nch;
+  const int tid = threadIdx.x;
+  constexpr int WCOLS = NT < 64 ? NT : 64;  // N columns per TMA box
+  const int valid = min(p.qpc, 4 * B - quad0);
 
-  float acc[2 * WM_NF][4];  // n8 tiles x the m16n8 accumulator fragment
-#pragma unroll
-  for (int j = 0; j < 2 * WM_NF; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int ci0 = 0; ci0 < Cin; ci0 += p.cc) {
-    const int cc = min(p.cc, Cin - ci0), segs = cc / 8;
-    const int ns = cc / p.ks, steps = 9 * ns;
-    // weight slab of step s: rows W[tap][ci0 + (s % ns)*ks + r][n0 ..]
-    auto load_b = [&](int s) {
-      if (s < steps) {
-        const int tap = s / ns, k0 = ci0 + (s % ns) * p.ks;
-        bf16* dst = Bs + static_cast<size_t>(s % WM_STAGES) * p.ks * ldb;
-        const int cs = p.nt / 8;
-        for (int idx = threadIdx.x; idx < p.ks * cs; idx += blockDim.x) {
-          const int r = idx / cs, c = idx - r * cs;
-          const bool ok = n0 + c * 8 < Cout;
-          cp_async16(dst + r * ldb + c * 8,
-                     ok ? w + (static_cast<size_t>(tap) * Cin + k0 + r) * Cout +
-                              n0 + c * 8
-                        : w,
-                     ok);
-        }
-      }
-      asm volatile("cp.async.commit_group;\n" ::);
-    };
-
-    __syncthreads();  // previous chunk's tiles and slabs fully consumed
-    for (int s = 0; s < WM_STAGES - 1; ++s) load_b(s);
-    for (int idx = threadIdx.x; idx < p.qb * p.rows * segs;
-         idx += blockDim.x) {
-      const int r = idx / segs, s = idx - r * segs;
-      const int qq = r / p.rows, rr = r - qq * p.rows;
-      const int q = q0 + qq, gy = rr / side - 1, gx = rr % side - 1;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (rr < side * side && gy >= 0 && gy < hq && gx >= 0 && gx < hq)
-        v = *reinterpret_cast<const uint4*>(
-            x +
-            ((static_cast<size_t>(n) * H + (q / 2) * hq + gy) * H +
-             (q % 2) * hq + gx) * Cin +
-            ci0 + s * 8);
-      *reinterpret_cast<uint4*>(tile + static_cast<size_t>(r) * lda + s * 8) =
-          v;
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&w_full[s], 1);
+      mbar_init(&w_empty[s], 2);   // one arrival per consumer warpgroup
     }
-    for (int s = 0; s < steps; ++s) {
-      asm volatile("cp.async.wait_group %0;\n" ::"n"(WM_STAGES - 2));
-      __syncthreads();           // slab s (and the input tiles) visible
-      load_b(s + WM_STAGES - 1);  // refills the slot consumed at s - 1
-      const int tap = s / ns, kb = (s % ns) * p.ks;
-      const bf16* arow =
-          tile + (static_cast<size_t>(wq) * p.rows + mf * 16 +
-                  (tap / 3) * side + tap % 3) * lda + kb;
-      const bf16* brow = Bs + static_cast<size_t>(s % WM_STAGES) * p.ks * ldb;
-      for (int kk = 0; kk < p.ks; kk += 16) {
-        unsigned a[4];
-        ldsm_x4(a, arow + lrow * lda + kk + lcol);
-#pragma unroll
-        for (int f = 0; f < WM_NF; ++f) {
-          if (f >= nf) break;
-          unsigned b[4];
-          ldsm_x4_t(b, brow + (kk + lrow) * ldb + f * 16 + lcol);
-          mma_16816(acc[2 * f], a, b[0], b[1]);
-          mma_16816(acc[2 * f + 1], a, b[2], b[3]);
-        }
-      }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&in_full[b], 1);
+      mbar_init(&in_empty[b], 8);  // one per consumer warp
     }
-    asm volatile("cp.async.wait_group 0;\n" ::);
-  }
-  __syncthreads();  // all warps done reading the tiles: reuse as C
-  {  // fragment element (r, c): r = lane/4 (+8), c = 2*(lane%4) (+1)
-    float* c0 = C + (wq * p.m_pad + mf * 16 + lane / 4) * ldc + 2 * (lane % 4);
-#pragma unroll
-    for (int j = 0; j < 2 * WM_NF; ++j) {
-      if (j >= 2 * nf) break;
-      c0[j * 8] = acc[j][0];
-      c0[j * 8 + 1] = acc[j][1];
-      c0[8 * ldc + j * 8] = acc[j][2];
-      c0[8 * ldc + j * 8 + 1] = acc[j][3];
-    }
+    mbar_fence_init();
   }
   __syncthreads();
 
-  const int ncols = nf * 16;
-  if constexpr (ACT) {  // bias + ReLU at every valid position, rounded once
-    const int per_a = hq * hq * ncols;
-    for (int idx = threadIdx.x; idx < p.qb * per_a; idx += blockDim.x) {
-      const int qq = idx / per_a, rem = idx - qq * per_a;
-      const int pos = rem / ncols, j = rem - pos * ncols;
-      const int y = pos / hq, xx = pos - y * hq, q = q0 + qq;
-      const float v =
-          fmaxf(C[(qq * p.m_pad + y * side + xx) * ldc + j] + bias[n0 + j],
-                0.f);
-      act[((static_cast<size_t>(n) * H + (q / 2) * hq + y) * H +
-           (q % 2) * hq + xx) * Cout + n0 + j] = __float2bfloat16(v);
+  if (tid >= 256) {  // producer warpgroup
+    regs_dealloc<40>();
+    if (tid == 256) {
+      auto load_in = [&](int c) {
+        const int b = c & 1;
+        mbar_expect_tx(&in_full[b], valid * side * side * p.cc * 2);
+        for (int qi = 0; qi < valid; ++qi) {
+          const int g = quad0 + qi, n = g / 4, q = g % 4;
+          // box (cc, side, 1, side, 1) from (c*cc, -1, qx, -1, 2n + qy):
+          // the one-pixel border lies outside the quadrant's own x and y
+          // ranges, so TMA fills it with zeros: the per-quadrant padding
+          tma_load_5d(in_buf + (b * p.qpc + qi) * p.in_bytes, &xmap,
+                      &in_full[b], c * p.cc, -1, q % 2, -1, 2 * n + q / 2);
+        }
+      };
+      load_in(0);
+      for (int it = 0; it < steps; ++it) {
+        const int c = it / 9, tap = it % 9, s = it % p.stages;
+        mbar_wait(&w_empty[s], ((it / p.stages) & 1) ^ 1);
+        unsigned char* dst = ring + s * p.slab_stride;
+        mbar_expect_tx(&w_full[s], p.slab_bytes);
+#pragma unroll
+        for (int h = 0; h < NT; h += WCOLS)
+          tma_load_2d(dst + (h / WCOLS) * p.cc * WCOLS * 2, &wmap,
+                      &w_full[s], n0 + h, tap * Cin + c * p.cc);
+        if (tap == 3 && c + 1 < nch) {  // the next chunk's input, in time
+          mbar_wait(&in_empty[(c + 1) & 1], (((c + 1) >> 1) & 1) ^ 1);
+          load_in(c + 1);
+        }
+      }
     }
+    return;
   }
 
-  // bias + ReLU + VALID 2x2 max over rows p, p+1, p+side, p+side+1
-  const int per_q = hp * hp * ncols;
+  regs_alloc<232>();
+  // consumer warpgroup wg: the block's row blocks wg*MB .. wg*MB+MB-1
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const uint32_t in_mask = p.cc == 64 ? 7 : (p.cc == 32 ? 3 : 1);
+  const uint32_t pitch = p.cc * 2;
+  int lrow[MB];       // the tile row this lane addresses, before the shift
+  uint32_t qoff[MB];  // its quadrant's offset in a staged chunk
+#pragma unroll
+  for (int m = 0; m < MB; ++m) {
+    const int j = wg * MB + m;
+    qoff[m] = (j / p.mq) * p.in_bytes;
+    lrow[m] = (j % p.mq) * 64 + warp * 16 + lane % 16;
+  }
+  // weights: MN-major slab, rows of WCOLS*2 bytes, 8-row groups (SBO),
+  // 64-column blocks cc rows apart (LBO)
+  constexpr uint32_t wpitch = WCOLS * 2;
+  constexpr uint32_t wlayout = wpitch == 128 ? 1 : (wpitch == 64 ? 2 : 3);
+  const uint32_t lbo = p.cc * wpitch, sbo = 8 * wpitch;
+
+  // A fragments of slab `it` (chunk it/9, tap it%9); the first tap of a
+  // chunk waits for its tile, the last one hands the tile back
+  auto load_a = [&](uint32_t (&a)[MB][4][4], int it) {
+    const int c = it / 9, tap = it % 9, b = c & 1;
+    if (tap == 0) mbar_wait(&in_full[b], (c >> 1) & 1);
+    const uint32_t base = smem_u32(in_buf + b * p.qpc * p.in_bytes);
+    const int shift = (tap / 3) * side + tap % 3;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk < nk) {
+#pragma unroll
+        for (int m = 0; m < MB; ++m)
+          ldsm_x4(a[m][kk],
+                  base + qoff[m] +
+                      swz((lrow[m] + shift) * pitch + (kk * 2 + lane / 16) * 16,
+                          in_mask));
+      }
+    }
+    if (tap == 8) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&in_empty[b]);
+    }
+  };
+  float acc[MB][NT / 2];
+#pragma unroll
+  for (int m = 0; m < MB; ++m)
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) acc[m][i] = 0.f;
+  // slab `it` runs on fragments x while the previous slab's wgmma (on y)
+  // may still be in flight; once they are done, y takes slab it + 1
+  auto step = [&](uint32_t (&x)[MB][4][4], uint32_t (&y)[MB][4][4], int it) {
+    const int s = it % p.stages;
+    mbar_wait(&w_full[s], (it / p.stages) & 1);
+    const unsigned char* slab = ring + s * p.slab_stride;
+#pragma unroll
+    for (int m = 0; m < MB; ++m) fence_regs(acc[m]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk < nk) {
+        const uint64_t db =
+            wgmma_desc(slab + kk * 16 * wpitch, lbo, sbo, wlayout);
+#pragma unroll
+        for (int m = 0; m < MB; ++m) wgmma_rs<NT>(acc[m], x[m][kk], db);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // slab it - 1 is done: its stage and y are free
+#pragma unroll
+    for (int m = 0; m < MB; ++m) {
+      fence_regs(acc[m]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(y[m][kk]);
+    }
+    if (it > 0 && tid % 128 == 0)
+      mbar_arrive(&w_empty[(it - 1) % p.stages]);
+    if (it + 1 < steps) load_a(y, it + 1);
+  };
+  uint32_t a0[MB][4][4], a1[MB][4][4];
+  load_a(a0, 0);
+  for (int it = 0; it < steps; it += 2) {
+    step(a0, a1, it);
+    if (it + 1 < steps) step(a1, a0, it + 1);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int m = 0; m < MB; ++m) {
+    fence_regs(acc[m]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(a0[m][kk]);
+      fence_regs(a1[m][kk]);
+    }
+  }
+  // every tile and slab of this block is read (the producer issued no
+  // more than was consumed): reuse the space
+  named_sync(1, 256);
+
+  // bias + ReLU of every GEMM row, rounded once, into a bf16 tile whose
+  // rows are the block's quadrants at the padded width. The pool of the
+  // rounded values equals the rounded pool of the f32 values (rounding is
+  // monotone), so both outputs come from this tile.
+  bf16* ct = reinterpret_cast<bf16*>(smem);
+#pragma unroll
+  for (int m = 0; m < MB; ++m) {
+    const int r0 = (wg * MB + m) * 64 + warp * 16 + lane / 4;
+#pragma unroll
+    for (int i = 0; i < NT / 2; i += 2) {
+      // accumulator element i: row +8 for odd i/2, column (i/4)*8 +
+      // (lane%4)*2 + i%2
+      const int row = r0 + 8 * ((i >> 1) & 1);
+      const int col = (i >> 2) * 8 + (lane & 3) * 2;
+      const float v0 = fmaxf(acc[m][i] + bias[n0 + col], 0.f);
+      const float v1 = fmaxf(acc[m][i + 1] + bias[n0 + col + 1], 0.f);
+      *reinterpret_cast<__nv_bfloat162*>(ct + row * p.ldc + col) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+  }
+  named_sync(1, 256);
+
+  constexpr int SEGS = NT / 8;  // 16-byte groups of a tile row
+  const int qrows = p.mq * 64;
+  if constexpr (ACT) {
+    const int per_q = hq * hq * SEGS;
+    for (int idx = tid; idx < valid * per_q; idx += 256) {
+      const int qi = idx / per_q, rem = idx - qi * per_q;
+      const int pos = rem / SEGS, sg = rem - pos * SEGS;
+      const int y = pos / hq, xx = pos - y * hq;
+      const int g = quad0 + qi, n = g / 4, q = g % 4;
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          ct + (qi * qrows + y * side + xx) * p.ldc + sg * 8);
+      *reinterpret_cast<uint4*>(
+          act + ((static_cast<size_t>(n) * H + (q / 2) * hq + y) * H +
+                 (q % 2) * hq + xx) * Cout + n0 + sg * 8) = v;
+    }
+  }
+  // VALID 2x2 max over rows r, r+1, r+side, r+side+1
+  const int per_q = hp * hp * SEGS;
   const size_t out_dim = static_cast<size_t>(4) * hp * hp * Cout;
-  for (int idx = threadIdx.x; idx < p.qb * per_q; idx += blockDim.x) {
-    const int qq = idx / per_q, rem = idx - qq * per_q;
-    const int a = rem / ncols, j = rem - a * ncols;
-    const int r = qq * p.m_pad + 2 * (a / hp) * side + 2 * (a % hp);
-    const float bv = bias[n0 + j];
-    float m = fmaxf(C[r * ldc + j] + bv, 0.f);
-    m = fmaxf(m, fmaxf(C[(r + 1) * ldc + j] + bv, 0.f));
-    m = fmaxf(m, fmaxf(C[(r + side) * ldc + j] + bv, 0.f));
-    m = fmaxf(m, fmaxf(C[(r + side + 1) * ldc + j] + bv, 0.f));
-    out[n * out_dim + (static_cast<size_t>(q0 + qq) * hp * hp + a) * Cout +
-        n0 + j] = __float2bfloat16(m);
+  for (int idx = tid; idx < valid * per_q; idx += 256) {
+    const int qi = idx / per_q, rem = idx - qi * per_q;
+    const int a = rem / SEGS, sg = rem - a * SEGS;
+    const int r = qi * qrows + 2 * (a / hp) * side + 2 * (a % hp);
+    const bf16* src = ct + r * p.ldc + sg * 8;
+    uint4 v[4] = {*reinterpret_cast<const uint4*>(src),
+                  *reinterpret_cast<const uint4*>(src + p.ldc),
+                  *reinterpret_cast<const uint4*>(src + side * p.ldc),
+                  *reinterpret_cast<const uint4*>(src + (side + 1) * p.ldc)};
+    __nv_bfloat162* m0 = reinterpret_cast<__nv_bfloat162*>(&v[0]);
+#pragma unroll
+    for (int k = 1; k < 4; ++k) {
+      const __nv_bfloat162* mk = reinterpret_cast<const __nv_bfloat162*>(&v[k]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) m0[e] = __hmax2(m0[e], mk[e]);
+    }
+    const int g = quad0 + qi, n = g / 4, q = g % 4;
+    *reinterpret_cast<uint4*>(out + n * out_dim +
+                              (static_cast<size_t>(q) * hp * hp + a) * Cout +
+                              n0 + sg * 8) = v[0];
   }
 }
 
-template <bool ACT>
-int launch_mma(const void* x, const void* w, const void* bias, void* out,
+template <int NT, int MB, bool ACT>
+int launch_wg_t(const WgPlan& p, const CUtensorMap& xmap,
+                const CUtensorMap& wmap, const void* bias, void* out,
                 void* act, int B, int H, int Cin, int Cout,
                 cudaStream_t stream) {
-  const MmaPlan p = mma_plan(H, Cin, Cout, ACT);
   const cudaError_t e = cudaFuncSetAttribute(
-      quadrant_mma_kernel<ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(p.smem));
+      quadrant_wgmma_kernel<NT, MB, ACT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(B * 4 / p.qb, (Cout + p.nt - 1) / p.nt);
-  quadrant_mma_kernel<ACT><<<grid, p.warps * 32, p.smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<bf16*>(out),
-      static_cast<bf16*>(act), H, Cin, Cout, p);
+  quadrant_wgmma_kernel<NT, MB, ACT>
+      <<<dim3(p.grid_x, p.grid_y), QW_THREADS, p.smem, stream>>>(
+          xmap, wmap, static_cast<const float*>(bias),
+          static_cast<bf16*>(out), static_cast<bf16*>(act), B, H, Cin, Cout,
+          p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool ACT>
+int launch_wg_nt(const WgPlan& p, const CUtensorMap& xmap,
+                 const CUtensorMap& wmap, const void* bias, void* out,
+                 void* act, int B, int H, int Cin, int Cout,
+                 cudaStream_t s) {
+#define QW_CASE(N_, M_)                                                    \
+  if (p.nt == N_ && p.mb == M_)                                            \
+    return launch_wg_t<N_, M_, ACT>(p, xmap, wmap, bias, out, act, B, H,  \
+                                    Cin, Cout, s);
+  QW_CASE(128, 2) QW_CASE(128, 1) QW_CASE(64, 2) QW_CASE(64, 1)
+  QW_CASE(32, 2) QW_CASE(32, 1) QW_CASE(16, 2) QW_CASE(16, 1)
+#undef QW_CASE
+  return static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+int launch_wgmma(const void* x, const void* w, const void* bias, void* out,
+                 void* act, int B, int H, int Cin, int Cout,
+                 cudaStream_t s) {
+  const bool with_act = act != nullptr;
+  const WgPlan p = wg_plan(B, H, Cin, Cout, with_act);
+  const int hq = H / 2, side = hq + 2;
+  // x as (2B, hq, 2, hq, Cin): (sample, quadrant row), row in quadrant,
+  // quadrant column, column in quadrant, channel; innermost first
+  const cuuint64_t cin2 = static_cast<cuuint64_t>(Cin) * 2;
+  const cuuint64_t xdims[5] = {static_cast<cuuint64_t>(Cin),
+                               static_cast<cuuint64_t>(hq), 2,
+                               static_cast<cuuint64_t>(hq),
+                               static_cast<cuuint64_t>(2 * B)};
+  const cuuint64_t xstrides[4] = {cin2, hq * cin2, H * cin2, hq * H * cin2};
+  const cuuint32_t xbox[5] = {static_cast<cuuint32_t>(p.cc),
+                              static_cast<cuuint32_t>(side), 1,
+                              static_cast<cuuint32_t>(side), 1};
+  // weights as (9*Cin, Cout): a slab is cc rows of one tap
+  const int wcols = p.nt < 64 ? p.nt : 64;
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(Cout),
+                               static_cast<cuuint64_t>(9) * Cin};
+  const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(Cout) * 2};
+  const cuuint32_t wbox[2] = {static_cast<cuuint32_t>(wcols),
+                              static_cast<cuuint32_t>(p.cc)};
+  CUtensorMap xmap, wmap;
+  int err = encode_bf16(&xmap, x, 5, xdims, xstrides, xbox,
+                        swizzle_for(p.cc * 2));
+  if (!err)
+    err = encode_bf16(&wmap, w, 2, wdims, wstrides, wbox,
+                      swizzle_for(wcols * 2));
+  if (err) return err;
+  return with_act ? launch_wg_nt<true>(p, xmap, wmap, bias, out, act, B, H,
+                                       Cin, Cout, s)
+                  : launch_wg_nt<false>(p, xmap, wmap, bias, out, act, B, H,
+                                        Cin, Cout, s);
 }
 
 // ---- CUDA-core body ---------------------------------------------------------
@@ -420,9 +593,16 @@ int launch(const void* x, const void* w, const void* bias, void* out,
   const int side = act != nullptr ? 2 * hpa + 2 : hq + 2;
   const int groups = (Cout + CO_PER - 1) / CO_PER;
   // The act form holds more live values a thread: its blocks stay at 256
-  // threads, which its register count allows (the wrapper keeps
-  // hpa * hpa <= 256 there).
-  const int max_threads = act != nullptr ? 256 : 1024;
+  // threads (the wrapper keeps hpa * hpa <= 256 there). Neither form goes
+  // beyond what the kernel's register count allows.
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, quadrant_kernel<T>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int max_threads = act != nullptr ? 256 : 1024;
+  if (fa.maxThreadsPerBlock < max_threads)
+    max_threads = fa.maxThreadsPerBlock / 32 * 32;
+  if (hpa * hpa > max_threads)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   int ncg = groups < 32 ? groups : 32;
   if (ncg > max_threads / (hpa * hpa)) ncg = max_threads / (hpa * hpa);
   const int threads = ((hpa * hpa * ncg + 31) / 32) * 32;
@@ -450,12 +630,26 @@ extern "C" int quadrant_forward(const void* x, const void* w,
                                 int B, int H, int Cin, int Cout, int is_bf16,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool with_act = act != nullptr;
-  if (is_bf16 && mma_fits(H, Cin, Cout, with_act))
-    return with_act
-               ? launch_mma<true>(x, w, bias, out, act, B, H, Cin, Cout, s)
-               : launch_mma<false>(x, w, bias, out, act, B, H, Cin, Cout, s);
+  if (is_bf16 && wg_fits(H, Cin, Cout, act != nullptr))
+    return launch_wgmma(x, w, bias, out, act, B, H, Cin, Cout, s);
   if (is_bf16)
     return launch<__nv_bfloat16>(x, w, bias, out, act, B, H, Cin, Cout, s);
   return launch<float>(x, w, bias, out, act, B, H, Cin, Cout, s);
+}
+
+// The launch plan of the wgmma body at these shapes: grid x, grid y,
+// threads, cluster size, dynamic shared-memory bytes, ring stages; all 0
+// where the CUDA-core body runs instead.
+extern "C" int quadrant_plan(int B, int H, int Cin, int Cout, int is_bf16,
+                             int with_act, int* out) {
+  for (int i = 0; i < 6; ++i) out[i] = 0;
+  if (!is_bf16 || !wg_fits(H, Cin, Cout, with_act != 0)) return 0;
+  const WgPlan p = wg_plan(B, H, Cin, Cout, with_act != 0);
+  out[0] = p.grid_x;
+  out[1] = p.grid_y;
+  out[2] = QW_THREADS;
+  out[3] = 1;
+  out[4] = p.smem;
+  out[5] = p.stages;
+  return 0;
 }

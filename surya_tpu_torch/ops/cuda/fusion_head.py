@@ -8,8 +8,9 @@ in-kernel dropout and the post-dropout ``h`` written out as the backward's
 residual. The kernel is ``csrc/fusion_head.cu``; its source note says what
 bounds it on the card (memory: W1 is 28.9 MB in bf16 at the flagship) and
 how the design answers that. The TPU kernel holds all of W1 in VMEM per
-batch block; shared memory cannot, so the CUDA grid runs over hidden tiles
-and sums f32 partial logits in a second, fixed-order launch.
+batch block; shared memory cannot, so the bf16 body (TMA ring, wgmma,
+K split over a thread-block cluster) runs over 128-unit hidden tiles and
+sums f32 partial logits in a second, fixed-order launch.
 
 Weights are in ``nn.Linear`` layout: w1 (H, D), w2 (C, H). Numerics
 follow the Pallas kernel: f32 accumulation, b1 added in f32, dropout in
@@ -35,6 +36,8 @@ products, as XLA's in JAX).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from surya_tpu_torch.ops import on_cuda
@@ -44,7 +47,8 @@ launches = 0  # kernel launches, counted where the kernel is launched
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = _build.P, _build.I
-_SIGNATURES = {"fusion_head_n_tiles": [_I],
+_SIGNATURES = {"fusion_head_n_tiles": [_I] * 4,
+               "fusion_head_plan": [_I] * 4 + [_P],
                "fusion_head_forward": ([_P] * 9 + [_I] * 5
                                        + [_build.U, _build.F, _P])}
 _M32 = 0xFFFFFFFF
@@ -140,7 +144,8 @@ def _forward(x, w1, b1, w2, b2, rate: float, seed, with_h: bool):
         seed_t = torch.as_tensor(seed, dtype=torch.int64,
                                  device=x.device).reshape(1)
     lib = _build.load("fusion_head", _SIGNATURES)
-    partial = torch.empty((lib.fusion_head_n_tiles(hdim), b, c),
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    partial = torch.empty((lib.fusion_head_n_tiles(b, d, hdim, is_bf16), b, c),
                           dtype=torch.float32, device=x.device)
     out = torch.empty((b, c), dtype=torch.float32, device=x.device)
     h = (torch.empty((b, hdim), dtype=x.dtype, device=x.device)
@@ -151,13 +156,24 @@ def _forward(x, w1, b1, w2, b2, rate: float, seed, with_h: bool):
         _build.ptr(b2f), _build.ptr(partial), _build.ptr(out),
         _build.ptr(h) if with_h else None,
         _build.ptr(seed_t) if rate > 0.0 else None,
-        b, d, hdim, c, int(x.dtype == torch.bfloat16),
+        b, d, hdim, c, is_bf16,
         dropout_threshold(rate) if rate > 0.0 else 0,
         1.0 / (1.0 - rate) if rate > 0.0 else 1.0,
         _build.stream_ptr(x.device))
     _build.check(err, "fusion_head_forward")
     launches += 1
     return out, h
+
+
+def launch_plan(b: int, d: int, h: int, dtype=torch.bfloat16) -> dict:
+    """The bf16 body's launch at these shapes (all 0 for f32, which runs
+    the CUDA-core body): grid, threads, cluster size, dynamic shared-memory
+    bytes, ring stages. Builds the library on first use."""
+    lib = _build.load("fusion_head", _SIGNATURES)
+    out = (ctypes.c_int * 6)()
+    lib.fusion_head_plan(b, d, h, int(dtype == torch.bfloat16), out)
+    return {"grid": [out[0], out[1]], "threads": out[2], "cluster": out[3],
+            "smem_bytes": out[4], "stages": out[5]}
 
 
 class FusionHead(torch.autograd.Function):

@@ -24,6 +24,8 @@ forward convolution is never run again.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -39,7 +41,8 @@ launches = 0  # kernel launches, counted where the kernel is launched
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = _build.P, _build.I
-_SIGNATURES = {"quadrant_forward": [_P] * 5 + [_I] * 5 + [_P]}
+_SIGNATURES = {"quadrant_forward": [_P] * 5 + [_I] * 5 + [_P],
+               "quadrant_plan": [_I] * 6 + [_P]}
 
 
 def quadrant_process_plain(fmap: torch.Tensor, kernel: torch.Tensor,
@@ -101,6 +104,19 @@ def _forward(fmap, kernel, bias, with_act: bool):
     _build.check(err, "quadrant_forward")
     launches += 1
     return out, act
+
+
+def launch_plan(b: int, h: int, cin: int, cout: int, with_act: bool,
+                dtype=torch.bfloat16) -> dict:
+    """The wgmma body's launch at these shapes (all 0 where the CUDA-core
+    body runs): grid, threads, cluster size, dynamic shared-memory bytes,
+    weight-ring stages. Builds the library on first use."""
+    lib = _build.load("quadrant", _SIGNATURES)
+    out = (ctypes.c_int * 6)()
+    lib.quadrant_plan(b, h, cin, cout, int(dtype == torch.bfloat16),
+                      int(with_act), out)
+    return {"grid": [out[0], out[1]], "threads": out[2], "cluster": out[3],
+            "smem_bytes": out[4], "stages": out[5]}
 
 
 def quadrant_backward(fmap, kernel, bias, act, g, need=(True, True, True)):

@@ -40,7 +40,15 @@ def _rel_err(got, want):
 @pytest.mark.parametrize("b,h,cin,cout", [(2, 14, 256, 128),
                                           (3, 28, 32, 16),
                                           (2, 4, 64, 32),
-                                          (2, 8, 16, 8)])
+                                          (2, 8, 16, 8),
+                                          # edges of the wgmma tilings
+                                          (1, 14, 256, 128),
+                                          (64, 14, 256, 128),
+                                          (256, 14, 256, 128),
+                                          (3, 8, 32, 16),
+                                          (2, 14, 256, 64),
+                                          (2, 14, 256, 256),
+                                          (2, 28, 1024, 64)])
 def test_quadrant_kernel_matches_plain(cuda, b, h, cin, cout, dtype, tol):
     g = torch.Generator(device=cuda).manual_seed(0)
     fmap = torch.randn(b, h, h, cin, device=cuda, generator=g).to(dtype)
@@ -57,7 +65,11 @@ def test_quadrant_kernel_matches_plain(cuda, b, h, cin, cout, dtype, tol):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,d,h,c", [(64, 5376, 2688, 8), (5, 256, 128, 3),
-                                     (70, 264, 40, 5)])
+                                     (70, 264, 40, 5),
+                                     # edges of the wgmma tiling and split
+                                     (1, 5376, 2688, 8), (63, 256, 128, 8),
+                                     (100, 264, 40, 5), (256, 5376, 2688, 8),
+                                     (257, 512, 2688, 3)])
 def test_fusion_head_kernel_matches_plain(cuda, b, d, h, c, dtype, tol):
     g = torch.Generator(device=cuda).manual_seed(1)
     x = (torch.randn(b, d, device=cuda, generator=g) * 0.1).to(dtype)
@@ -99,7 +111,8 @@ def _leaves(*tensors):
 
 
 @pytest.mark.parametrize("b,h,cin,cout", [(16, 14, 256, 128),
-                                          (2, 6, 4, 2), (2, 30, 16, 16)])
+                                          (2, 6, 4, 2), (2, 30, 16, 16),
+                                          (1, 14, 256, 128), (3, 8, 32, 64)])
 def test_quadrant_training_form_matches_plain(cuda, b, h, cin, cout):
     """f32: (out, act) to 1e-4 and the three gradients of the autograd
     Function (kernel forward, hand-written backward) against autograd
@@ -150,7 +163,8 @@ def test_quadrant_training_form_bf16(cuda):
 
 @pytest.mark.parametrize("dtype,tol,gtol", [(torch.float32, 1e-4, 1e-5),
                                             (torch.bfloat16, 2e-2, 5e-2)])
-@pytest.mark.parametrize("b,d,h,c", [(64, 256, 512, 8), (70, 264, 40, 5)])
+@pytest.mark.parametrize("b,d,h,c", [(64, 256, 512, 8), (70, 264, 40, 5),
+                                     (1, 5376, 2688, 8), (257, 512, 2688, 8)])
 def test_fusion_head_training_form_matches_plain(cuda, b, d, h, c, dtype,
                                                  tol, gtol):
     """Rate 0.5: the kernel's mask is the Philox reference's, the dropped
@@ -193,6 +207,55 @@ def test_fusion_head_training_form_matches_plain(cuda, b, d, h, c, dtype,
     (thead.fusion_head_plain(*ref, rate, keep) ** 2).sum().backward()
     for a, r in zip(got, ref):
         assert _rel_l2(a.grad, r.grad) <= gtol
+
+
+@pytest.mark.parametrize("b,h,cin,cout", [(1, 14, 256, 128),
+                                          (64, 14, 256, 128),
+                                          (256, 14, 256, 128),
+                                          (3, 8, 32, 64),
+                                          (2, 14, 1024, 256),
+                                          (2, 28, 256, 16)])
+def test_quadrant_training_form_bf16_edges(cuda, b, h, cin, cout):
+    """The wgmma body's training form at the edges of its tilings: (out,
+    act) against the plain version to 2e-2."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    fmap = torch.randn(b, h, h, cin, device=cuda, generator=g).bfloat16()
+    kernel = (torch.randn(3, 3, cin, cout, device=cuda, generator=g)
+              * 0.05).bfloat16()
+    bias = torch.randn(cout, device=cuda, generator=g)
+    out, act = tquad.quadrant_process_with_act(fmap, kernel, bias)
+    want_out, want_act = tquad.quadrant_process_plain(
+        fmap.float(), kernel.float(), bias, with_act=True)
+    assert out.dtype == act.dtype == torch.bfloat16
+    assert _rel_err(out, want_out) <= 2e-2
+    assert _rel_err(act, want_act) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["quadrant", "quadrant_act", "head",
+                                  "head_dropout"])
+def test_two_launches_give_identical_bits(cuda, form, dtype):
+    """No atomics, fixed-order sums: the same inputs give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    if form.startswith("quadrant"):
+        args = (torch.randn(64, 14, 14, 256, device=cuda, generator=g).to(
+            dtype), (torch.randn(3, 3, 256, 128, device=cuda, generator=g)
+                     * 0.05).to(dtype), torch.randn(128, device=cuda,
+                                                    generator=g))
+        run = (tquad.quadrant_process_with_act if form == "quadrant_act"
+               else lambda *a: (tquad.quadrant_process(*a),))
+    else:
+        args = ((torch.randn(256, 5376, device=cuda, generator=g) * 0.1).to(
+            dtype), (torch.randn(2688, 5376, device=cuda, generator=g)
+                     * 0.02).to(dtype), torch.randn(2688, device=cuda,
+                                                    generator=g),
+            (torch.randn(8, 2688, device=cuda, generator=g) * 0.02).to(dtype),
+            torch.randn(8, device=cuda, generator=g))
+        rate = 0.5 if form == "head_dropout" else 0.0
+        run = lambda *a: thead.fusion_head_with_h(  # noqa: E731
+            *a, rate=rate, seed=11)
+    first, second = run(*args), run(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("shape,dtype,tol", [
