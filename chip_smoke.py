@@ -5,8 +5,8 @@
 Builds the hand-written CUDA kernels from ``surya_tpu_torch/csrc`` and
 holds each kernel, in its inference and its training form (outputs and
 gradients), against its plain PyTorch version on the card. Then it drives
-three paths, with every kernel's launch count set to 0 just before and
-read just after:
+four paths, with every kernel's launch count set to 0 just before and
+read just after (the loop's in the CLI processes that run it):
 
 - **serve**: the flagship ``quadtree-fusion`` model (resnet18 trunk,
   224 px, 8 classes, random weights from seed 0, bf16 weights, uint8 wire,
@@ -15,6 +15,14 @@ read just after:
   ``make_train_step`` at batch 256, bf16 over f32 parameters, dropout 0.5,
   a fixed batch from seed 0, then an eval step; and one f32 step on the
   card against the same step on the CPU;
+- **augment**: ``device_transform`` at batch 256, 256 px → 224, train
+  (augmentation) and eval (resize) split, on the card against the CPU
+  with the same drawn parameters (plain PyTorch on both sides);
+- **loop**: ``python -m surya_tpu_torch train --preset quadtree-fusion``
+  as published (batch 16, augmentation on, bf16) for 2 epochs on a
+  synthetic pack of the replay set's sizes, its second epoch traced;
+  ``eval`` on the best checkpoint; a run sent SIGTERM at its first step
+  and resumed;
 - **stem_probe**: a train-mode stem forward (cuDNN conv 7x7/2 on
   (256, 224, 224, 3) bf16, then the two stem-BN kernels) against
   ``F.batch_norm`` + ReLU on the same map.
@@ -36,6 +44,7 @@ import copy
 import dataclasses
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1047,6 +1056,253 @@ def stem_probe(stem_bn, card, eps=1e-5):
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# the training pipeline: device_transform, and the CLI's loop
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the split sizes of the reference replay set
+# (runs/reference_replay/dataset_regen.json: 768/256/256 images)
+LOOP_SPLITS = {"train": 768, "valid": 256, "test": 256}
+STAGING, AUGMENT_BATCH, AUGMENT_TOL = 256, 256, 1e-5
+CLASS_NAMES = [f"pose{i}" for i in range(8)]
+
+
+def synthetic_splits(counts, staging=STAGING):
+    """Seeded class-separable images (the port's data/synthetic.py) at the
+    staging size, quantised to uint8 as a decoded dataset holds them, and
+    47 features with one missing value in every seventh sample."""
+    from surya_tpu_torch.data import make_synthetic_spatial
+
+    splits = {}
+    for i, (name, n) in enumerate(counts.items()):
+        imgs, feats, labels = make_synthetic_spatial(
+            num_classes=len(CLASS_NAMES), per_class=n // len(CLASS_NAMES),
+            image_size=staging, seed=i)
+        feats[::7, 5] = np.nan
+        splits[name] = (np.clip((imgs + 1.5) * 85.0 + 0.5, 0, 255).astype(
+            np.uint8), feats, labels)
+    return splits
+
+
+def augment_phase(card):
+    """``device_transform`` of the preset (augmentation on, 224 px out) at
+    batch 256 from the 256-px staging size, the train split (augment) and
+    the eval split (resize), with per-class imputation: on the card against
+    the same call on the CPU. Both calls take a CPU generator of one seed,
+    so the parameters are drawn on the CPU once and moved to the batch:
+    the same drawn parameters on both sides. The ops are plain PyTorch on
+    both: this holds the card's results to the CPU's; it is not a kernel
+    check. Timed with CUDA events (host enqueue included, as the loop sees
+    it), with a CUDA generator as the loop draws."""
+    from surya_tpu_torch.core.config import get_preset
+    from surya_tpu_torch.data.dataset import device_transform
+    from surya_tpu_torch.data.imputation import (
+        ClassFeatureStats,
+        compute_class_stats,
+    )
+
+    cfg = get_preset("quadtree-fusion").data
+    imgs, feats, labels = synthetic_splits({"train": AUGMENT_BATCH})["train"]
+    stats = ClassFeatureStats(*compute_class_stats(feats, labels, 8),
+                              CLASS_NAMES)
+    host = tuple(torch.from_numpy(a) for a in (imgs, feats, labels))
+    dev = tuple(t.cuda() for t in host)
+    row = {"phase": "augment", "batch": AUGMENT_BATCH, "staging": STAGING,
+           "out": cfg.image_size, "tol": AUGMENT_TOL}
+    for split in ("train", "valid"):
+        def gen(device="cpu"):
+            return (torch.Generator(device=device).manual_seed(7)
+                    if split == "train" else None)
+
+        got = device_transform(cfg, stats, split, gen(), dev)
+        t0 = time.perf_counter()
+        want = device_transform(cfg, stats, split, gen(), host)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        assert got[0].shape == (AUGMENT_BATCH, cfg.image_size,
+                                cfg.image_size, 3)
+        err = max((g.cpu().float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in got)
+        row[split] = {
+            "max_abs_err": err, "finite": finite,
+            "ms": time_ms(lambda: device_transform(
+                cfg, stats, split, gen("cuda"), dev), reps=10,
+                hide_host=False),
+            "cpu_ms": cpu_ms}
+        assert err <= AUGMENT_TOL and finite, (split, err)
+    emit({**row, **card})
+    return row
+
+
+def run_cli(args, timeout=900):
+    """``python -m surya_tpu_torch ARGS`` from the repository, as a user
+    runs it → (stdout, the JSON of its last line)."""
+    res = subprocess.run([sys.executable, "-m", "surya_tpu_torch", *args],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=timeout)
+    if res.returncode != 0:
+        raise AssertionError(f"{args[0]} failed ({res.returncode}):\n"
+                             f"{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+    return res.stdout, json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def epoch_records(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if "train_loss" in r]
+
+
+LOOP_SPANS = ("host_batch", "to_device", "device_transform", "train_step",
+              "evaluate")
+
+
+def trace_summary(trace_path):
+    """From a torch.profiler Chrome trace: device time (the union of
+    kernel, copy and set intervals) in ms, the kernels by total time, and
+    the host time in each of the loop's annotated spans in ms."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans, by_name = [], {}
+    host = dict.fromkeys(LOOP_SPANS, 0.0)
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            spans.append((e["ts"], e["ts"] + e["dur"]))
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+        elif e.get("cat") == "user_annotation" and e["name"] in host:
+            host[e["name"]] += e["dur"] / 1e3
+    busy, end = 0.0, -1.0
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return (busy / 1e3, [{"name": n[:100], "ms": t / 1e3} for n, t in top],
+            host)
+
+
+def loop_phase(card, augment):
+    """The training pipeline as a user runs it. A pack of seeded synthetic
+    images at the replay set's sizes (768/256/256, 256 px, about 250 MB)
+    in a temporary directory; then, each as its own process:
+    ``train --preset quadtree-fusion`` for 2 epochs as published (batch
+    16, augmentation on, bf16, dropout 0.5) with the second epoch traced;
+    ``eval`` on its best checkpoint; a third ``train`` sent SIGTERM at its
+    first step and resumed with ``--resume``. Each child reports the
+    kernel wrappers' launch counters of its own run, training and
+    inference form apart."""
+    import shutil
+    import signal
+    import tempfile
+
+    from surya_tpu_torch.data.packed import pack_arrays
+
+    root = tempfile.mkdtemp(prefix="surya_loop_")
+    try:
+        t0 = time.perf_counter()
+        pack = os.path.join(root, "pack")
+        pack_arrays(pack, synthetic_splits(LOOP_SPLITS), CLASS_NAMES)
+        pack_s = time.perf_counter() - t0
+        flags = ["--preset", "quadtree-fusion", f"--data.packed_dir={pack}"]
+        run = os.path.join(root, "run")
+        t0 = time.perf_counter()
+        _, summary = run_cli(["train", *flags, "--out", run,
+                              "--train.epochs=2", "--profile-dir",
+                              os.path.join(root, "prof")])
+        train_s = time.perf_counter() - t0
+        epochs = epoch_records(run)
+        steps = LOOP_SPLITS["train"] // 16
+        evals = LOOP_SPLITS["valid"] // 16
+        want = {"training": 2 * steps,
+                "inference": 2 * evals + LOOP_SPLITS["test"] // 16}
+        launches = summary["kernel_launches"]
+        assert launches == {"quadrant": want, "fusion_head": want}, launches
+        assert [r["epoch"] for r in epochs] == [0, 1]
+        assert [r["steps"] for r in epochs] == [steps, steps]
+        assert epochs[1]["train_loss"] < epochs[0]["train_loss"], epochs
+        assert all(np.isfinite(r["val_loss"]) for r in epochs)
+        busy_ms, top, host_ms = trace_summary(
+            os.path.join(root, "prof", "trace_epoch1.json"))
+        assert busy_ms > 0, "the profiler recorded no device time"
+
+        best = os.path.join(run, "ckpt", f"{summary['best_epoch']}.pt")
+        _, ev = run_cli(["eval", best, *flags])
+        assert ev["kernel_launches"] == {
+            k: {"training": 0, "inference": LOOP_SPLITS["test"] // 16}
+            for k in ("quadrant", "fusion_head")}, ev["kernel_launches"]
+        assert ev["count"] == summary["test"]["count"] == LOOP_SPLITS["test"]
+
+        # SIGTERM at the first step, then --resume
+        run3 = os.path.join(root, "run3")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "surya_tpu_torch", "train", *flags,
+             "--out", run3, "--train.epochs=2", "--train.log_every=1"],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        watchdog = threading.Timer(900, proc.kill)
+        watchdog.start()
+        try:
+            lines = []
+            for line in proc.stdout:
+                lines.append(line)
+                if line.startswith("step="):
+                    proc.send_signal(signal.SIGTERM)
+                    break
+            out, _ = proc.communicate(timeout=900)
+        finally:
+            watchdog.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        lines.append(out)
+        assert proc.returncode == 0, "".join(lines)[-4000:]
+        stopped = json.loads("".join(lines).strip().splitlines()[-1])
+        assert stopped["preempted"] is True, stopped
+        with open(os.path.join(run3, "ckpt", "loop_state.json")) as f:
+            ls = json.load(f)
+        assert ls["preempt"] and ls["epoch"] == 0 and ls["batch_idx"] > 0
+        _, resumed = run_cli(["train", *flags, "--out", run3,
+                              "--train.epochs=2", "--resume"])
+        resumed_epochs = epoch_records(run3)
+        assert resumed["preempted"] is False
+        assert [r["epoch"] for r in resumed_epochs] == [0, 1]
+        assert resumed_epochs[0]["steps"] == steps - ls["batch_idx"]
+
+        e1 = epochs[1]
+        row = {"phase": "loop", "preset": "quadtree-fusion", "batch": 16,
+               "images": LOOP_SPLITS, "staging": STAGING,
+               "pack_s": pack_s, "train_cli_s": train_s,
+               "epoch_time_s": [r["epoch_time_s"] for r in epochs],
+               "train_time_s": [r["train_time_s"] for r in epochs],
+               "images_per_sec": [r["images_per_sec"] for r in epochs],
+               "train_loss": [r["train_loss"] for r in epochs],
+               "val_loss": [r["val_loss"] for r in epochs],
+               "val_accuracy": [r["val_accuracy"] for r in epochs],
+               "input_wait_share": [r["input_wait_s"] / r["train_time_s"]
+                                    for r in epochs],
+               "epoch1_profiled": True,
+               "epoch1_device_busy_ms": busy_ms,
+               "epoch1_device_idle_share": 1 - busy_ms / (
+                   e1["epoch_time_s"] * 1e3),
+               "epoch1_top_kernels": top,
+               "epoch1_host_ms_per_step": {k: v / steps
+                                           for k, v in host_ms.items()},
+               "device_transform_ms": {s: augment[s]["ms"]
+                                       for s in ("train", "valid")},
+               "launches": launches, "eval_launches": ev["kernel_launches"],
+               "test": summary["test"],
+               "eval": {k: ev[k] for k in ("loss", "accuracy", "count")},
+               "preempted_at": {"epoch": ls["epoch"],
+                                "batch_idx": ls["batch_idx"]},
+               "resumed_epochs": [r["epoch"] for r in resumed_epochs],
+               "resumed_launches": resumed["kernel_launches"], **card}
+        emit(row)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1081,7 +1337,9 @@ def main() -> int:
     del predictor
     train_launches = train_phase(quadrant, fusion_head, card)
     train_f32_parity(card)
+    augment = augment_phase(card)
     torch.cuda.empty_cache()
+    loop_launches = loop_phase(card, augment)
     stem_launches, stem_times = stem_probe(stem_bn, card)
     times.update(stem_times)
 
@@ -1107,6 +1365,22 @@ def main() -> int:
         "affine_relu": ("stem_bn", "surya_tpu/ops/pallas/stem_bn.py:71",
                         stem_launches["affine_relu"],
                         stem_times["affine_relu"])}
+    # launches on every path: serve, train and stem probe in this process,
+    # the loop's in its own (the CLI child's counters)
+    paths = {
+        "quadrant": {"serve": serve_launches["quadrant"],
+                     "loop": loop_launches["quadrant"]["inference"]},
+        "fusion_head": {"serve": serve_launches["fusion_head"],
+                        "loop": loop_launches["fusion_head"]["inference"]},
+        "quadrant_train": {"train": train_launches["quadrant"],
+                           "loop": loop_launches["quadrant"]["training"]},
+        "fusion_head_train": {
+            "train": train_launches["fusion_head"],
+            "loop": loop_launches["fusion_head"]["training"]},
+        "channel_stats": {"stem_probe": stem_launches["channel_stats"],
+                          "loop": 0},
+        "affine_relu": {"stem_probe": stem_launches["affine_relu"],
+                        "loop": 0}}
     kernels = []
     for kname, (source, replaces, launches, check) in table.items():
         if launches < 1:
@@ -1116,6 +1390,7 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": f"surya_tpu_torch/csrc/{source}.cu",
             "replaces": replaces, "launches": launches,
+            "launches_by_path": paths[kname],
             "max_abs_err": check["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

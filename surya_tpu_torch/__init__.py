@@ -9,8 +9,14 @@ JAX package so each counterpart is easy to find:
                  CUDA kernels that replace the Pallas TPU kernels
 - ``models``   — ResNet trunk, heads, QuadtreeCNN, losses, registry, JAX
                  weight import
-- ``train``    — the train and eval steps (AdamW, clip, freeze, NaN guard)
+- ``data``     — host batches (in-memory, disk, packed), the device-side
+                 augmentation and imputation
+- ``native``   — the ctypes JPEG batch decoder (host side)
+- ``train``    — the train and eval steps (AdamW, clip, freeze, NaN guard),
+                 the epoch loop with checkpoints and resume, comparison
 - ``infer``    — fixed-batch ``Predictor`` and the HTTP server
+- ``core``     — also checkpoints, metrics and the named random streams
+- ``features`` — the 47 feature names; ``utils`` — plots
 
 Entry points run on the card (``device=None`` → ``"cuda"``) and raise if
 there is none, unless the caller passes ``device="cpu"``.

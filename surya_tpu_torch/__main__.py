@@ -1,16 +1,276 @@
-"""CLI of the PyTorch port (``train`` and ``eval`` come with the training
-loop; the train step itself is ``surya_tpu_torch.train``).
+"""CLI of the PyTorch port, with the commands and flags of
+``python -m surya_tpu``:
 
   python -m surya_tpu_torch list-presets
+  python -m surya_tpu_torch train --preset quadtree-fusion \\
+      [--synthetic] [--out DIR] [--plot] [--resume] [--profile-dir DIR] \\
+      [--device cpu] [--train.lr=3e-4 ...]
+  python -m surya_tpu_torch eval CKPT [--preset P] [--split test] [--synthetic]
+  python -m surya_tpu_torch compare NAME=CKPT:PRESET ... [--split valid] [--out DIR]
+  python -m surya_tpu_torch pack --root DATA --out DIR [--staging 256]
   python -m surya_tpu_torch serve CKPT [--preset P] [--port 8577] [--classes names.json]
 
-CKPT is a ``.npz`` of a JAX variable tree (``/``-joined keys) or a
-``.pt`` of the port's own ``state_dict``. ``serve`` runs on the card.
+CKPT is a checkpoint directory written by ``train`` (its latest step), one
+of its ``<step>.pt`` files, a ``.pt`` of the port's ``state_dict`` or a
+``.npz`` of a JAX variable tree (``/``-joined keys). Everything runs on the
+card; ``--device cpu`` runs the plain PyTorch path instead (for tests).
+Dotted ``--section.field=value`` flags override the preset.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import sys
+
+
+def _build_data(cfg):
+    """Pick the data source: synthetic, packed or disk (spatial models;
+    the temporal sources are ROADMAP A9)."""
+    from surya_tpu_torch.models.registry import TEMPORAL_MODELS
+
+    if cfg.model.name in TEMPORAL_MODELS:
+        raise NotImplementedError(
+            f"model {cfg.model.name!r} needs the sequence data sources: "
+            "ROADMAP A9 (temporal families)")
+    if cfg.data.synthetic:
+        from surya_tpu_torch.data import (
+            ArrayDataSource,
+            make_synthetic_spatial,
+        )
+
+        splits = {s: make_synthetic_spatial(
+                      num_classes=cfg.model.num_classes,
+                      per_class=max(cfg.data.synthetic_size
+                                    // cfg.model.num_classes, 2),
+                      image_size=cfg.data.image_size, seed=i)
+                  for i, s in enumerate(("train", "valid", "test"))}
+        return ArrayDataSource(splits, cfg.data.batch_size)
+    if cfg.data.packed_dir:
+        from surya_tpu_torch.data.packed import PackedDataSource
+
+        return PackedDataSource(cfg.data, seed=cfg.train.seed)
+    from surya_tpu_torch.data.dataset import DiskDataSource
+
+    return DiskDataSource(cfg.data, seed=cfg.train.seed)
+
+
+def _config(args, rest):
+    from surya_tpu_torch.core.config import get_preset, parse_cli_overrides
+
+    cfg = get_preset(args.preset)
+    if getattr(args, "synthetic", False):
+        cfg = cfg.override({"data.synthetic": "true"})
+    overrides = parse_cli_overrides(rest) if rest else {}
+    return (cfg.override(overrides) if overrides else cfg), overrides
+
+
+def kernel_launches() -> dict:
+    """The kernel wrappers' launch counters: training and inference form
+    of each main-path kernel."""
+    from surya_tpu_torch.ops.cuda import fusion_head, quadrant
+
+    return {name: {"training": m.training_launches,
+                   "inference": m.launches - m.training_launches}
+            for name, m in (("quadrant", quadrant),
+                            ("fusion_head", fusion_head))}
+
+
+def cmd_train(argv: list[str]) -> int:
+    import argparse
+
+    from surya_tpu_torch.core.metrics import MetricsLogger
+    from surya_tpu_torch.ops import resolve_device
+    from surya_tpu_torch.train import train_and_evaluate
+
+    ap = argparse.ArgumentParser(prog="surya_tpu_torch train")
+    ap.add_argument("--preset", default="quadtree-fusion")
+    ap.add_argument("--synthetic", action="store_true")
+    ap.add_argument("--out", default="runs/torch_latest")
+    ap.add_argument("--plot", action="store_true")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint (incl. optimizer "
+                         "state) and continue")
+    ap.add_argument("--profile-dir", default=None,
+                    help="torch.profiler Chrome trace of the second epoch")
+    ap.add_argument("--tensorboard", action="store_true",
+                    help="mirror metrics as TensorBoard scalars under "
+                         "OUT/tb")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="autograd anomaly detection, and no NaN guard, "
+                         "so the first NaN raises where it starts")
+    ap.add_argument("--device", default=None,
+                    help="default: the card; 'cpu' runs the plain path")
+    args, rest = ap.parse_known_args(argv)
+    device = resolve_device(args.device)
+
+    cfg, overrides = _config(args, rest)
+    if args.debug_nans:
+        import torch
+
+        torch.autograd.set_detect_anomaly(True)
+        cfg = cfg.override({"train.nan_guard": "false"})
+    os.makedirs(args.out, exist_ok=True)
+    if "train.checkpoint_dir" not in overrides:
+        cfg = cfg.override(
+            {"train.checkpoint_dir": os.path.join(args.out, "ckpt")})
+    with open(os.path.join(args.out, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+
+    data = _build_data(cfg)
+    logger = MetricsLogger(
+        os.path.join(args.out, "metrics.jsonl"),
+        tensorboard_dir=(os.path.join(args.out, "tb")
+                         if args.tensorboard else None))
+    try:
+        summary = train_and_evaluate(cfg, data, mesh=cfg.mesh, logger=logger,
+                                     resume=args.resume,
+                                     profile_dir=args.profile_dir,
+                                     device=device)
+    finally:
+        logger.close()
+
+    if args.plot:
+        from surya_tpu_torch.utils.plotting import (
+            plot_confusion_matrix,
+            plot_history,
+        )
+
+        plot_history(summary["history"],
+                     os.path.join(args.out, "history.png"),
+                     summary["best_epoch"])
+        if "test" in summary:
+            names = getattr(data, "class_names",
+                            [str(i) for i in range(cfg.model.num_classes)])
+            plot_confusion_matrix(summary["test"]["confusion"], names,
+                                  os.path.join(args.out, "confusion.png"))
+    result = {k: v for k, v in summary.get("test", {}).items()
+              if k != "confusion"}
+    line = {"best_epoch": summary["best_epoch"],
+            "best_metric": summary["best_metric"], "test": result,
+            "preempted": summary["preempted"]}
+    if device.type == "cuda":
+        line["kernel_launches"] = kernel_launches()
+    print(json.dumps(line), flush=True)
+    return 0
+
+
+def cmd_eval(argv: list[str]) -> int:
+    """Evaluate a checkpoint on a split."""
+    import argparse
+
+    from surya_tpu_torch.core.checkpoint import load_checkpoint_variables
+    from surya_tpu_torch.ops import resolve_device
+    from surya_tpu_torch.train.compare import evaluate_checkpoint
+
+    ap = argparse.ArgumentParser(prog="surya_tpu_torch eval")
+    ap.add_argument("checkpoint")
+    ap.add_argument("--preset", default="quadtree-fusion")
+    ap.add_argument("--split", default="test")
+    ap.add_argument("--synthetic", action="store_true")
+    ap.add_argument("--device", default=None)
+    args, rest = ap.parse_known_args(argv)
+    device = resolve_device(args.device)
+    cfg, _ = _config(args, rest)
+    data = _build_data(cfg)
+    out = evaluate_checkpoint(cfg, load_checkpoint_variables(args.checkpoint),
+                              data, split=args.split, device=device)
+    line = {k: (v.tolist() if hasattr(v, "tolist") else float(v))
+            for k, v in out.items() if k != "confusion"}
+    if device.type == "cuda":
+        line["kernel_launches"] = kernel_launches()
+    print(json.dumps(line), flush=True)
+    return 0
+
+
+def cmd_pack(argv: list[str]) -> int:
+    """Build the packed pre-decoded dataset cache (``data/packed.py``):
+    one offline decode pass, then decode-free epochs through
+    ``--data.packed_dir``."""
+    import argparse
+
+    from surya_tpu_torch.data.packed import pack_dataset, pack_sequences
+
+    ap = argparse.ArgumentParser(prog="surya_tpu_torch pack")
+    ap.add_argument("--root", default="data/flat_image_dataset_final")
+    ap.add_argument("--out", required=True, help="pack output dir")
+    ap.add_argument("--staging", type=int, default=256,
+                    help="decoded side length (DiskDataSource staging)")
+    ap.add_argument("--sequences", action="store_true",
+                    help="pack a windowed .npz sequence dataset "
+                         "(ROADMAP A9)")
+    ap.add_argument("--seq-len", type=int, default=4)
+    ap.add_argument("--overwrite", action="store_true")
+    args = ap.parse_args(argv)
+    if args.sequences:
+        meta = pack_sequences(args.root, args.out, seq_len=args.seq_len,
+                              overwrite=args.overwrite)
+    else:
+        meta = pack_dataset(args.root, args.out, staging=args.staging,
+                            overwrite=args.overwrite)
+    print(json.dumps({"out": os.path.abspath(args.out),
+                      "kind": meta["kind"], "splits": meta["splits"]}))
+    return 0
+
+
+def cmd_compare(argv: list[str]) -> int:
+    """Evaluate N checkpoints on one split: accuracy, weighted P/R/F1 and
+    R² per model, plus confusion matrices and a bar chart with --out.
+
+      python -m surya_tpu_torch compare quadtree=runs/a/ckpt:quadtree-fusion \\
+          other=runs/b/ckpt:quadtree-fusion [--split valid] [--out DIR]
+    """
+    import argparse
+
+    from surya_tpu_torch.core.checkpoint import load_checkpoint_variables
+    from surya_tpu_torch.core.config import get_preset, parse_cli_overrides
+    from surya_tpu_torch.ops import resolve_device
+    from surya_tpu_torch.train.compare import compare_models
+
+    ap = argparse.ArgumentParser(prog="surya_tpu_torch compare")
+    ap.add_argument("entries", nargs="+",
+                    help="NAME=CKPT_PATH:PRESET triples")
+    ap.add_argument("--split", default="valid")
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--device", default=None)
+    args, rest = ap.parse_known_args(argv)
+    device = resolve_device(args.device)
+    overrides = parse_cli_overrides(rest) if rest else {}
+
+    entries = []
+    for spec in args.entries:
+        if "=" not in spec or ":" not in spec.split("=", 1)[1]:
+            raise SystemExit(f"bad entry {spec!r}; "
+                             "expected NAME=CKPT_PATH:PRESET")
+        name, rhs = spec.split("=", 1)
+        path, preset = rhs.rsplit(":", 1)
+        cfg = get_preset(preset)
+        if overrides:
+            cfg = cfg.override(overrides)
+        load_checkpoint_variables(path)  # fail fast on a bad path
+        entries.append({"name": name, "cfg": cfg, "params_path": path})
+
+    cfg0 = entries[0]["cfg"]
+    # every entry is evaluated on entry 0's data pipeline, so the
+    # data-relevant config must agree
+    for e in entries[1:]:
+        for field in ("image_size", "num_classes", "num_features",
+                      "data_root", "seq_root", "synthetic"):
+            v0, v = (getattr(cfg0.data, field, None),
+                     getattr(e["cfg"].data, field, None))
+            if v0 != v:
+                raise SystemExit(
+                    f"compare: entry {e['name']!r} data.{field}={v!r} "
+                    f"differs from entry 0's {v0!r}; all entries share "
+                    "one data pipeline — pass matching --data.* "
+                    "overrides")
+    summary = compare_models(entries, _build_data(cfg0), split=args.split,
+                             out_dir=args.out, device=device)
+    if args.out:
+        with open(os.path.join(args.out, "comparison.json"), "w") as f:
+            json.dump(summary, f, indent=2)
+    print(json.dumps(summary))
+    return 0
 
 
 def cmd_list_presets() -> int:
@@ -32,6 +292,10 @@ def main(argv: list[str] | None = None) -> int:
     cmd, rest = argv[0], argv[1:]
     if cmd == "list-presets":
         return cmd_list_presets()
+    commands = {"train": cmd_train, "eval": cmd_eval, "pack": cmd_pack,
+                "compare": cmd_compare}
+    if cmd in commands:
+        return commands[cmd](rest)
     if cmd == "serve":
         from surya_tpu_torch.infer.http_server import main as serve_main
 

@@ -28,6 +28,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+# the server's checkpoint reader: .npz of JAX variables, .pt or a
+# checkpoint directory
+from surya_tpu_torch.core.checkpoint import (  # noqa: F401
+    load_checkpoint_variables as load_state_dict,
+)
+
 __all__ = ["PredictionServer", "main"]
 
 _MAX_BODY = 1 << 30  # 1 GiB: ~7k uint8 224² images per request
@@ -166,22 +172,6 @@ class PredictionServer:
         return ThreadingHTTPServer((host, port), Handler)
 
 
-def load_state_dict(path: str) -> dict:
-    """``.npz`` of a JAX variable tree (``/``-joined keys) or ``.pt`` of
-    the port's own ``state_dict``."""
-    if path.endswith(".npz"):
-        from surya_tpu_torch.models.from_jax import (
-            from_jax_variables,
-            load_npz_variables,
-        )
-
-        return from_jax_variables(load_npz_variables(path))
-    if path.endswith(".pt"):
-        return torch.load(path, map_location="cpu", weights_only=True)
-    raise SystemExit(f"checkpoint must be a .npz (JAX variables) or .pt "
-                     f"(port state_dict), got {path!r}")
-
-
 def main(argv: list[str]) -> int:
     """``python -m surya_tpu_torch serve CKPT [--preset P] [--port N] ...``"""
     import argparse
@@ -190,7 +180,8 @@ def main(argv: list[str]) -> int:
     from surya_tpu_torch.infer.serve import Predictor
 
     ap = argparse.ArgumentParser(prog="surya_tpu_torch serve")
-    ap.add_argument("checkpoint", help=".npz (JAX variables) or .pt")
+    ap.add_argument("checkpoint", help=".npz (JAX variables), .pt or a "
+                    "checkpoint directory")
     ap.add_argument("--preset", default="quadtree-fusion")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8577)

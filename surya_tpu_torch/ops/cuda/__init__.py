@@ -10,7 +10,9 @@ runs under a ``torch.autograd.Function`` whose backward mirrors the JAX
 custom VJP (library convolutions and matrix products, as XLA's there).
 
 Each wrapper launches its kernel for a CUDA tensor, runs its plain PyTorch
-version for a CPU tensor, and counts its kernel launches in ``launches``.
+version for a CPU tensor, and counts its kernel launches in ``launches``
+(``quadrant`` and ``fusion_head`` also count those of the training form
+in ``training_launches``).
 ``_build`` compiles the sources with nvcc at first use.
 """
 

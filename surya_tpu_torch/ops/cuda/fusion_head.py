@@ -44,6 +44,7 @@ from surya_tpu_torch.ops import on_cuda
 from surya_tpu_torch.ops.cuda import _build
 
 launches = 0  # kernel launches, counted where the kernel is launched
+training_launches = 0  # of which in the training form (with_h)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = _build.P, _build.I
@@ -121,7 +122,7 @@ def _check(x, w1, b1, w2, b2):
 def _forward(x, w1, b1, w2, b2, rate: float, seed, with_h: bool):
     """Kernel (CUDA tensor) or plain version (CPU tensor) → (logits, h);
     h is None without ``with_h``."""
-    global launches
+    global launches, training_launches
     b, d = x.shape
     hdim, c = w1.shape[0], w2.shape[0]
     if not on_cuda(x):
@@ -162,6 +163,7 @@ def _forward(x, w1, b1, w2, b2, rate: float, seed, with_h: bool):
         _build.stream_ptr(x.device))
     _build.check(err, "fusion_head_forward")
     launches += 1
+    training_launches += int(with_h)
     return out, h
 
 

@@ -38,6 +38,7 @@ from surya_tpu_torch.ops.quadtree import (
 )
 
 launches = 0  # kernel launches, counted where the kernel is launched
+training_launches = 0  # of which in the training form (with_act)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = _build.P, _build.I
@@ -77,7 +78,7 @@ def _check(fmap, kernel, bias):
 def _forward(fmap, kernel, bias, with_act: bool):
     """Kernel (CUDA tensor) or plain version (CPU tensor) → (out, act);
     act is None without ``with_act``."""
-    global launches
+    global launches, training_launches
     if not on_cuda(fmap):
         res = quadrant_process_plain(fmap, kernel, bias, with_act)
         return res if with_act else (res, None)
@@ -103,6 +104,7 @@ def _forward(fmap, kernel, bias, with_act: bool):
         _build.stream_ptr(fmap.device))
     _build.check(err, "quadrant_forward")
     launches += 1
+    training_launches += int(with_act)
     return out, act
 
 

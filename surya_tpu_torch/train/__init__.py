@@ -1,6 +1,13 @@
-"""Training: the train and eval steps (``steps``). The loop,
-checkpoints and CLI come with later slices."""
+"""Training: the train and eval steps (``steps``), the epoch loop with
+early stopping, plateau LR, checkpoints and resume (``loop``), and the
+multi-checkpoint comparison (``compare``)."""
 
+from surya_tpu_torch.train.loop import (  # noqa: F401
+    EarlyStopping,
+    Plateau,
+    evaluate,
+    train_and_evaluate,
+)
 from surya_tpu_torch.train.steps import (  # noqa: F401
     TrainState,
     create_train_state,

@@ -139,7 +139,9 @@ def create_train_state(model: torch.nn.Module, cfg: Config, rng=None,
     return TrainState(model, tx, 0, generator), tx
 
 
-def _to_device(batch, device):
+def to_device(batch, device):
+    """(images, feats, labels) as numpy arrays or tensors → tensors on
+    ``device``, labels int64 (an asynchronous copy from pinned memory)."""
     images, feats, labels = (
         torch.from_numpy(a) if isinstance(a, np.ndarray) else a
         for a in batch)
@@ -185,7 +187,7 @@ def make_train_step(model: torch.nn.Module, tx, cfg: Config, mesh=None,
 
     def step(state: TrainState, batch, generator=None):
         generator = state.generator if generator is None else generator
-        images, feats, labels = _to_device(batch, _model_device(model))
+        images, feats, labels = to_device(batch, _model_device(model))
         n = labels.shape[0]
         if n % accum:
             raise ValueError(
@@ -233,7 +235,7 @@ def make_eval_step(model: torch.nn.Module, num_classes: int,
 
     @torch.no_grad()
     def step(batch):
-        images, feats, labels = _to_device(batch, _model_device(model))
+        images, feats, labels = to_device(batch, _model_device(model))
         model.eval()
         logits = model(images, feats).float()
         valid = labels >= 0

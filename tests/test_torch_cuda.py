@@ -7,6 +7,8 @@ a card and no JAX it runs without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -301,3 +303,66 @@ def test_train_step_on_card_launches_both_kernels_and_learns(cuda):
                                                 before[1] + 10)
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     assert state.generator.device.type == "cuda"
+
+
+def _synthetic_pack(root, size, counts):
+    from surya_tpu_torch.data import make_synthetic_spatial
+    from surya_tpu_torch.data.packed import pack_arrays
+
+    splits = {}
+    for i, (name, n) in enumerate(counts.items()):
+        imgs, feats, labels = make_synthetic_spatial(
+            num_classes=4, per_class=n // 4, image_size=size, seed=i)
+        feats[::5, 3] = np.nan
+        splits[name] = (np.clip((imgs + 1.5) * 85 + 0.5, 0, 255).astype(
+            np.uint8), feats, labels)
+    pack_arrays(str(root), splits, ["a", "b", "c", "d"])
+    return splits
+
+
+def test_device_transform_on_card_matches_cpu(cuda, tmp_path):
+    """The train (augment) and eval (resize) transform at 256 → 224 on
+    the card against the same call on the CPU: the same CPU generator on
+    both sides, so the same drawn parameters; 1e-5 absolute."""
+    from surya_tpu_torch.core.config import DataConfig
+    from surya_tpu_torch.data.packed import PackedDataSource
+
+    _synthetic_pack(tmp_path, 256, {"train": 8})
+    src = PackedDataSource(DataConfig(), packed_dir=str(tmp_path))
+    host = src._load_batch("train", np.arange(8))
+    dev = tuple(torch.from_numpy(a).to(cuda) for a in host)
+    for split, seed in (("train", 3), ("valid", None)):
+        gen = (lambda: None if seed is None  # noqa: E731
+               else torch.Generator().manual_seed(seed))
+        got = src.device_transform(split, gen(), dev)
+        want = src.device_transform(split, gen(), host)
+        assert got[0].device.type == "cuda" and got[0].shape == (8, 224,
+                                                                 224, 3)
+        for g, w in zip(got, want):
+            assert (g.cpu().float() - w.float()).abs().max().item() <= 1e-5
+
+
+def test_loop_on_card_launches_both_forms_of_both_kernels(cuda, tmp_path):
+    """Two epochs of train_and_evaluate from a synthetic pack: each train
+    step launches the training forms, each eval batch the inference
+    forms."""
+    from surya_tpu_torch.core.config import get_preset
+    from surya_tpu_torch.core.metrics import MetricsLogger
+    from surya_tpu_torch.data.packed import PackedDataSource
+    from surya_tpu_torch.train import train_and_evaluate
+
+    _synthetic_pack(tmp_path / "pack", 72, {"train": 32, "valid": 16,
+                                            "test": 16})
+    cfg = get_preset("quadtree-fusion").override({
+        "model.num_classes": "4", "data.image_size": "64",
+        "train.epochs": "2", "train.lr": "1e-3",
+        "train.checkpoint_dir": str(tmp_path / "ckpt")})
+    data = PackedDataSource(cfg.data, packed_dir=str(tmp_path / "pack"))
+    before = {m: (m.launches, m.training_launches) for m in (tquad, thead)}
+    summary = train_and_evaluate(cfg, data, logger=MetricsLogger(echo=False))
+    for m, (total, training) in before.items():
+        assert m.training_launches - training == 4      # 2 epochs x 2 steps
+        assert (m.launches - total) - (m.training_launches - training) == 3
+    assert summary["test"]["count"] == 16
+    assert summary["state"].model.classifier.fc1.weight.device.type == "cuda"
+    assert os.listdir(tmp_path / "ckpt")
