@@ -283,12 +283,13 @@ def serve_phase(quadrant, fusion_head, card):
 HIDE_HOST_CYCLES = 1_000_000
 
 
-def time_ms(fn, flush=None, reps=20, hide_host=True):
+def time_ms(fn, flush=None, reps=20, hide_host=True, spin=HIDE_HOST_CYCLES):
     """Median device time of ``fn`` over ``reps`` launches, each timed by
     CUDA events after a write of ``flush`` that evicts the 50 MB L2, as
     the serving path (trunk between heads) leaves it cold. Without
     ``hide_host`` the events also count the time the card waits for the
-    host to enqueue ``fn``."""
+    host to enqueue ``fn``; with it, a spin of ``spin`` cycles (longer
+    than the enqueue) is queued before the start event."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -297,7 +298,7 @@ def time_ms(fn, flush=None, reps=20, hide_host=True):
         if flush is not None:
             flush.zero_()
         if hide_host:
-            torch.cuda._sleep(HIDE_HOST_CYCLES)
+            torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -305,6 +306,22 @@ def time_ms(fn, flush=None, reps=20, hide_host=True):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def enqueue_ms(fn, reps=10, spin=HIDE_HOST_CYCLES):
+    """Median host time of a call of ``fn`` that launches and does not
+    wait for the card: the card is kept busy by a spin of ``spin`` cycles
+    queued before each call, so the call's time is its enqueue."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin)
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -1065,6 +1082,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # (runs/reference_replay/dataset_regen.json: 768/256/256 images)
 LOOP_SPLITS = {"train": 768, "valid": 256, "test": 256}
 STAGING, AUGMENT_BATCH, AUGMENT_TOL = 256, 256, 1e-5
+# about 20 ms of the card's clock: longer than device_transform's enqueue
+# (3.5-4.3 ms on an H100), so the events time its device work alone
+TRANSFORM_SPIN = 40 * HIDE_HOST_CYCLES
 CLASS_NAMES = [f"pose{i}" for i in range(8)]
 
 
@@ -1085,6 +1105,60 @@ def synthetic_splits(counts, staging=STAGING):
     return splits
 
 
+def augment_stages(cfg, host):
+    """Each stage of the train transform, and the eval transform, on the
+    card against the CPU from the same input (the CPU's output of the
+    stage before, moved to the card) with the same drawn parameters: the
+    max |card - CPU| of each stage alone. And how far one ulp of a drawn
+    crop height or of cos θ moves the normalised geometry output on the
+    card (the sensitivity that makes the draw derive cos and sin, and
+    ``augment.div`` divide, on the generator's device)."""
+    from surya_tpu_torch.data import augment as A
+
+    b, h, w, _ = host.shape
+    params = A.draw_augment_params(
+        torch.Generator().manual_seed(7), b, h, w, cfg.rrc_scale_min,
+        cfg.hflip_prob, (cfg.jitter_brightness, cfg.jitter_contrast,
+                         cfg.jitter_saturation, cfg.jitter_hue),
+        cfg.rotation_deg, (cfg.blur_sigma_min, cfg.blur_sigma_max))
+    no_hue = {**params, "hue": None}
+    hue_only = {**params, "brightness": None, "contrast": None,
+                "saturation": None}
+
+    def on(p, device):
+        return {k: None if v is None else v.to(device) for k, v in p.items()}
+
+    stages = (
+        ("div255", lambda x, d: A.div(x.float(), 255.0)),
+        ("crop_flip_rotate", lambda x, d: A.crop_flip_rotate(
+            x, on(params, d), cfg.image_size)),
+        ("jitter", lambda x, d: A.color_jitter(x, on(no_hue, d))),
+        ("hue", lambda x, d: A.color_jitter(x, on(hue_only, d))),
+        ("gaussian_blur", lambda x, d: A.gaussian_blur(
+            x, params["sigma"].to(d))),
+        ("normalize", lambda x, d: A.normalize(x)))
+    errs, x = {}, host
+    for name, fn in stages:
+        want = fn(x, "cpu")
+        errs[name] = (fn(x.cuda(), "cuda").cpu() - want).abs().max().item()
+        x = want
+    unit = A.div(host.float(), 255.0)
+    errs["eval_preprocess"] = (
+        A.eval_preprocess(unit.cuda(), cfg.image_size).cpu()
+        - A.eval_preprocess(unit, cfg.image_size)).abs().max().item()
+
+    dev, p = unit.cuda(), on(params, "cuda")
+    base = A.normalize(A.crop_flip_rotate(dev, p, cfg.image_size))
+    ulp = {}
+    for key in ("ch", "cos"):
+        nudged = {**p, key: torch.nextafter(p[key],
+                                            torch.full_like(p[key], 2e9))}
+        ulp[key] = (A.normalize(A.crop_flip_rotate(dev, nudged,
+                                                   cfg.image_size))
+                    - base).abs().max().item()
+    return errs, ulp
+
+
 def augment_phase(card):
     """``device_transform`` of the preset (augmentation on, 224 px out) at
     batch 256 from the 256-px staging size, the train split (augment) and
@@ -1093,8 +1167,12 @@ def augment_phase(card):
     so the parameters are drawn on the CPU once and moved to the batch:
     the same drawn parameters on both sides. The ops are plain PyTorch on
     both: this holds the card's results to the CPU's; it is not a kernel
-    check. Timed with CUDA events (host enqueue included, as the loop sees
-    it), with a CUDA generator as the loop draws."""
+    check. Each stage's own card-vs-CPU difference is reported beside it
+    (:func:`augment_stages`). Timed with a CUDA generator as the loop
+    draws, at batch 256 and at the loop's batch 16: by CUDA events with
+    the host's enqueue included, as the loop sees it (``event_ms``), and
+    behind a spin that hides it (``device_ms``); and the host's time to
+    enqueue a call (``enqueue_ms``)."""
     from surya_tpu_torch.core.config import get_preset
     from surya_tpu_torch.data.dataset import device_transform
     from surya_tpu_torch.data.imputation import (
@@ -1124,13 +1202,24 @@ def augment_phase(card):
         err = max((g.cpu().float() - w.float()).abs().max().item()
                   for g, w in zip(got, want))
         finite = all(bool(torch.isfinite(t.float()).all()) for t in got)
-        row[split] = {
-            "max_abs_err": err, "finite": finite,
-            "ms": time_ms(lambda: device_transform(
-                cfg, stats, split, gen("cuda"), dev), reps=10,
-                hide_host=False),
-            "cpu_ms": cpu_ms}
+        row[split] = {"max_abs_err": err, "finite": finite, "cpu_ms": cpu_ms}
+        for b in (AUGMENT_BATCH, 16):
+            part = tuple(t[:b] for t in dev)
+
+            def call():
+                return device_transform(cfg, stats, split, gen("cuda"), part)
+
+            row[split][f"event_ms_b{b}"] = time_ms(call, reps=10,
+                                                   hide_host=False)
+            row[split][f"device_ms_b{b}"] = time_ms(call, reps=10,
+                                                    spin=TRANSFORM_SPIN)
+            row[split][f"enqueue_ms_b{b}"] = enqueue_ms(call,
+                                                        spin=TRANSFORM_SPIN)
         assert err <= AUGMENT_TOL and finite, (split, err)
+    row["stage_max_abs_err"], row["one_ulp_moves"] = augment_stages(
+        cfg, host[0])
+    assert all(e <= AUGMENT_TOL for e in row["stage_max_abs_err"].values()), \
+        row["stage_max_abs_err"]
     emit({**row, **card})
     return row
 
@@ -1217,7 +1306,8 @@ def loop_phase(card, augment):
         want = {"training": 2 * steps,
                 "inference": 2 * evals + LOOP_SPLITS["test"] // 16}
         launches = summary["kernel_launches"]
-        assert launches == {"quadrant": want, "fusion_head": want}, launches
+        assert launches == {"quadrant": want, "fusion_head": want,
+                            "channel_stats": 0, "affine_relu": 0}, launches
         assert [r["epoch"] for r in epochs] == [0, 1]
         assert [r["steps"] for r in epochs] == [steps, steps]
         assert epochs[1]["train_loss"] < epochs[0]["train_loss"], epochs
@@ -1228,9 +1318,10 @@ def loop_phase(card, augment):
 
         best = os.path.join(run, "ckpt", f"{summary['best_epoch']}.pt")
         _, ev = run_cli(["eval", best, *flags])
+        tests = {"training": 0, "inference": LOOP_SPLITS["test"] // 16}
         assert ev["kernel_launches"] == {
-            k: {"training": 0, "inference": LOOP_SPLITS["test"] // 16}
-            for k in ("quadrant", "fusion_head")}, ev["kernel_launches"]
+            "quadrant": tests, "fusion_head": tests,
+            "channel_stats": 0, "affine_relu": 0}, ev["kernel_launches"]
         assert ev["count"] == summary["test"]["count"] == LOOP_SPLITS["test"]
 
         # SIGTERM at the first step, then --resume
@@ -1268,6 +1359,9 @@ def loop_phase(card, augment):
         assert resumed["preempted"] is False
         assert [r["epoch"] for r in resumed_epochs] == [0, 1]
         assert resumed_epochs[0]["steps"] == steps - ls["batch_idx"]
+        # the resumed run's second epoch: after warm-up, not traced
+        steady = resumed_epochs[1]
+        assert steady["steps"] == steps
 
         e1 = epochs[1]
         row = {"phase": "loop", "preset": "quadtree-fusion", "batch": 16,
@@ -1288,8 +1382,19 @@ def loop_phase(card, augment):
                "epoch1_top_kernels": top,
                "epoch1_host_ms_per_step": {k: v / steps
                                            for k, v in host_ms.items()},
-               "device_transform_ms": {s: augment[s]["ms"]
-                                       for s in ("train", "valid")},
+               "steady": {
+                   "epoch_time_s": steady["epoch_time_s"],
+                   "train_time_s": steady["train_time_s"],
+                   "train_ms_per_step": steady["train_time_s"] * 1e3 / steps,
+                   "images_per_sec": steady["images_per_sec"],
+                   "input_wait_share": (steady["input_wait_s"]
+                                        / steady["train_time_s"]),
+                   "device_transform_enqueue_share": (
+                       augment["train"]["enqueue_ms_b16"]
+                       / (steady["train_time_s"] * 1e3 / steps))},
+               "device_transform_ms": {
+                   s: {k: v for k, v in augment[s].items() if "_ms_" in k}
+                   for s in ("train", "valid")},
                "launches": launches, "eval_launches": ev["kernel_launches"],
                "test": summary["test"],
                "eval": {k: ev[k] for k in ("loss", "accuracy", "count")},
@@ -1378,9 +1483,9 @@ def main() -> int:
             "train": train_launches["fusion_head"],
             "loop": loop_launches["fusion_head"]["training"]},
         "channel_stats": {"stem_probe": stem_launches["channel_stats"],
-                          "loop": 0},
+                          "loop": loop_launches["channel_stats"]},
         "affine_relu": {"stem_probe": stem_launches["affine_relu"],
-                        "loop": 0}}
+                        "loop": loop_launches["affine_relu"]}}
     kernels = []
     for kname, (source, replaces, launches, check) in table.items():
         if launches < 1:

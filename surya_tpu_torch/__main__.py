@@ -24,9 +24,10 @@ import os
 import sys
 
 
-def _build_data(cfg):
+def _build_data(cfg, device):
     """Pick the data source: synthetic, packed or disk (spatial models;
-    the temporal sources are ROADMAP A9)."""
+    the temporal sources are ROADMAP A9). Batches bound for a card are
+    pinned in the source's producer thread."""
     from surya_tpu_torch.models.registry import TEMPORAL_MODELS
 
     if cfg.model.name in TEMPORAL_MODELS:
@@ -49,10 +50,12 @@ def _build_data(cfg):
     if cfg.data.packed_dir:
         from surya_tpu_torch.data.packed import PackedDataSource
 
-        return PackedDataSource(cfg.data, seed=cfg.train.seed)
+        return PackedDataSource(cfg.data, seed=cfg.train.seed,
+                                pin_memory=device.type == "cuda")
     from surya_tpu_torch.data.dataset import DiskDataSource
 
-    return DiskDataSource(cfg.data, seed=cfg.train.seed)
+    return DiskDataSource(cfg.data, seed=cfg.train.seed,
+                          pin_memory=device.type == "cuda")
 
 
 def _config(args, rest):
@@ -66,14 +69,16 @@ def _config(args, rest):
 
 
 def kernel_launches() -> dict:
-    """The kernel wrappers' launch counters: training and inference form
-    of each main-path kernel."""
-    from surya_tpu_torch.ops.cuda import fusion_head, quadrant
+    """The kernel wrappers' launch counters of this process: training and
+    inference form of the quadrant and fusion-head kernels, and each
+    stem-BN kernel's count."""
+    from surya_tpu_torch.ops.cuda import fusion_head, quadrant, stem_bn
 
-    return {name: {"training": m.training_launches,
-                   "inference": m.launches - m.training_launches}
-            for name, m in (("quadrant", quadrant),
-                            ("fusion_head", fusion_head))}
+    counts = {name: {"training": m.training_launches,
+                     "inference": m.launches - m.training_launches}
+              for name, m in (("quadrant", quadrant),
+                              ("fusion_head", fusion_head))}
+    return {**counts, **stem_bn.launches}
 
 
 def cmd_train(argv: list[str]) -> int:
@@ -117,7 +122,7 @@ def cmd_train(argv: list[str]) -> int:
     with open(os.path.join(args.out, "config.json"), "w") as f:
         f.write(cfg.to_json())
 
-    data = _build_data(cfg)
+    data = _build_data(cfg, device)
     logger = MetricsLogger(
         os.path.join(args.out, "metrics.jsonl"),
         tensorboard_dir=(os.path.join(args.out, "tb")
@@ -172,7 +177,7 @@ def cmd_eval(argv: list[str]) -> int:
     args, rest = ap.parse_known_args(argv)
     device = resolve_device(args.device)
     cfg, _ = _config(args, rest)
-    data = _build_data(cfg)
+    data = _build_data(cfg, device)
     out = evaluate_checkpoint(cfg, load_checkpoint_variables(args.checkpoint),
                               data, split=args.split, device=device)
     line = {k: (v.tolist() if hasattr(v, "tolist") else float(v))
@@ -264,8 +269,9 @@ def cmd_compare(argv: list[str]) -> int:
                     f"differs from entry 0's {v0!r}; all entries share "
                     "one data pipeline — pass matching --data.* "
                     "overrides")
-    summary = compare_models(entries, _build_data(cfg0), split=args.split,
-                             out_dir=args.out, device=device)
+    summary = compare_models(entries, _build_data(cfg0, device),
+                             split=args.split, out_dir=args.out,
+                             device=device)
     if args.out:
         with open(os.path.join(args.out, "comparison.json"), "w") as f:
             json.dump(summary, f, indent=2)

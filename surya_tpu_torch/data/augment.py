@@ -39,7 +39,8 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 def div(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` correctly rounded on every device: for a Python-scalar
     divisor CUDA multiplies by its reciprocal, which is one ulp off at
-    times, and one ulp of a crop scale moves a 256-px sample by ~5e-5."""
+    times, and one ulp of a crop height moves the normalised 256-px
+    output by 3.5e-5 (``chip_smoke.py``'s augment phase, H100)."""
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
@@ -115,9 +116,11 @@ def draw_augment_params(generator: torch.Generator, b: int, h: int, w: int,
     bright, contrast, sat, hue = jitter
     factor = (lambda x: _uniform(generator, b, 1 - x, 1 + x)  # noqa: E731
               if x > 0 else None)
-    # cos and sin are taken here, on the generator's device: one ulp of
-    # cos moves a 256-px sample by ~5e-5 after normalisation, and the
-    # card's cosf is not the CPU's
+    # cos and sin are taken here, on the generator's device: the card's
+    # cosf is not the CPU's, and one ulp of cos moved a normalised output
+    # by 0.27 where a rotated sample crossed a negative integer coordinate
+    # (bilinear_sample's border rule jumps there; chip_smoke.py's augment
+    # phase, H100)
     return {"y0": y0, "x0": x0, "ch": ch, "cw": cw,
             "cos": torch.cos(theta), "sin": torch.sin(theta), "flip": flip,
             "brightness": factor(bright), "contrast": factor(contrast),

@@ -5,9 +5,9 @@ Scans ``<root>/<split>/<class>/*.jpg`` with sibling ``.npy`` 47-vectors
 and serves global batches:
 
 - host side: threaded JPEG decode + resize to a fixed staging size,
-  shuffle, batch, prefetch; with a CUDA card present each host batch is
-  pinned in the producer thread, so its copy to the card can run
-  asynchronously;
+  shuffle, batch, prefetch; with ``pin_memory`` (the caller's choice,
+  for batches bound for a card) each host batch is pinned in the
+  producer thread, so its copy to the card can run asynchronously;
 - device side: :func:`device_transform` turns the uint8
   batch into f32/255 on the batch's device, applies the augmentation
   (``data/augment.py``) or the eval resize, then the per-class NaN
@@ -87,16 +87,18 @@ class DiskDataSource:
     """train_batches/eval_batches over the on-disk layout.
 
     Batches are (images uint8 (B,S,S,3), features f32 (B,47), labels
-    i32), numpy arrays, or pinned CPU tensors where a CUDA card is
-    present; :meth:`device_transform` finishes the pipeline on the device.
+    i32), numpy arrays, or pinned CPU tensors with ``pin_memory`` (pass it
+    when the batches go to a card); :meth:`device_transform` finishes the
+    pipeline on the device.
     """
 
     def __init__(self, cfg: DataConfig, splits=("train", "valid", "test"),
                  stats: ClassFeatureStats | None = None,
                  staging_size: int = 256, num_threads: int = 8,
                  seed: int = 0, use_native: bool = True,
-                 pad_eval_to: int = 1):
+                 pad_eval_to: int = 1, pin_memory: bool = False):
         self.cfg = cfg
+        self.pin_memory = pin_memory
         self.staging = staging_size
         self.num_threads = num_threads
         self.seed = seed
@@ -164,7 +166,6 @@ class DiskDataSource:
         chunks = [order[i:i + bs] for i in range(0, len(order), bs)]
         q: queue.Queue = queue.Queue(maxsize=self.cfg.prefetch)
         stop = threading.Event()
-        pin = torch.cuda.is_available()
 
         def put(item) -> bool:
             while not stop.is_set():
@@ -179,7 +180,7 @@ class DiskDataSource:
             try:
                 for ch in chunks:
                     batch = self._load_batch(split, ch)
-                    if pin:
+                    if self.pin_memory:
                         batch = tuple(torch.from_numpy(a).pin_memory()
                                       for a in batch)
                     if not put(batch):

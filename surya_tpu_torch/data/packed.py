@@ -59,6 +59,43 @@ def split_paths(out_dir: str, split: str) -> dict:
     }
 
 
+def _new_meta(staging: int, source_root: str, class_names) -> dict:
+    return {"format_version": FORMAT_VERSION, "kind": "flat",
+            "staging": staging, "source_root": source_root,
+            "class_names": list(class_names), "splits": {}}
+
+
+def _write_meta(out_dir: str, meta: dict) -> None:
+    with open(os.path.join(out_dir, META_NAME), "w") as f:
+        json.dump(meta, f, indent=1)
+
+
+def _write_split(out_dir: str, meta: dict, split: str, labels,
+                 chunks) -> None:
+    """Write one split from ``chunks``, an iterable of (uint8 images
+    (k,S,S,3), features (k,47)) in sample order, then record it in the
+    metadata (written per split, so a pack can resume mid-way)."""
+    files = split_paths(out_dir, split)
+    n, staging = len(labels), meta["staging"]
+    images = np.lib.format.open_memmap(
+        files["images"], mode="w+", dtype=np.uint8,
+        shape=(n, staging, staging, 3))
+    feats = np.empty((n, 47), np.float32)
+    start = 0
+    for imgs, f in chunks:
+        images[start:start + len(imgs)] = imgs
+        feats[start:start + len(imgs)] = f
+        start += len(imgs)
+    if start != n:
+        raise ValueError(f"{split}: {start} images for {n} labels")
+    images.flush()
+    del images
+    np.save(files["features"], feats)
+    np.save(files["labels"], np.asarray(labels, np.int32))
+    meta["splits"][split] = {"count": n}
+    _write_meta(out_dir, meta)
+
+
 def pack_dataset(data_root: str, out_dir: str, staging: int = 256,
                  splits=("train", "valid", "test"), use_native: bool = True,
                  chunk: int = 256, overwrite: bool = False,
@@ -75,9 +112,7 @@ def pack_dataset(data_root: str, out_dir: str, staging: int = 256,
     os.makedirs(out_dir, exist_ok=True)
 
     meta_path = os.path.join(out_dir, META_NAME)
-    meta = {"format_version": FORMAT_VERSION, "kind": "flat",
-            "staging": staging, "source_root": os.path.abspath(data_root),
-            "class_names": list(src.class_names), "splits": {}}
+    meta = _new_meta(staging, os.path.abspath(data_root), src.class_names)
     if os.path.exists(meta_path) and not overwrite:
         with open(meta_path) as f:
             old = json.load(f)
@@ -94,65 +129,45 @@ def pack_dataset(data_root: str, out_dir: str, staging: int = 256,
 
     for split, (_paths, _fpaths, labels, _names) in src.index.items():
         n = len(labels)
-        files = split_paths(out_dir, split)
         done = meta["splits"].get(split)
         if (done and done.get("count") == n and not overwrite
-                and all(os.path.exists(p) for p in files.values())):
+                and all(os.path.exists(p)
+                        for p in split_paths(out_dir, split).values())):
             if verbose:
                 print(f"[pack] {split}: {n} images already packed, skipping")
             continue
         if verbose:
             print(f"[pack] {split}: decoding {n} images at {staging}px")
-        images = np.lib.format.open_memmap(
-            files["images"], mode="w+", dtype=np.uint8,
-            shape=(n, staging, staging, 3))
-        feats = np.empty((n, 47), np.float32)
-        for start in range(0, n, chunk):
-            idx = np.arange(start, min(start + chunk, n))
-            imgs, f, _ = src._load_batch(split, idx)
-            images[start:start + len(idx)] = imgs
-            feats[start:start + len(idx)] = f
-        images.flush()
-        del images
-        np.save(files["features"], feats)
-        np.save(files["labels"], np.asarray(labels, np.int32))
-        meta["splits"][split] = {"count": n}
-        with open(meta_path, "w") as f:
-            json.dump(meta, f, indent=1)  # per split: resumable mid-pack
+        _write_split(out_dir, meta, split, labels, (
+            src._load_batch(split, np.arange(start, min(start + chunk, n)))
+            [:2] for start in range(0, n, chunk)))
 
     # the per-class stats go next to the pack, so it is self-contained
     for name in STATS_FILES:
         s = os.path.join(data_root, name)
         if os.path.exists(s):
             shutil.copy2(s, os.path.join(out_dir, name))
-    with open(meta_path, "w") as f:
-        json.dump(meta, f, indent=1)
+    _write_meta(out_dir, meta)
     return meta
 
 
 def pack_arrays(out_dir: str, splits: dict[str, tuple],
                 class_names: list[str]) -> dict:
     """Write in-memory splits {name: (uint8 images (N,S,S,3), features
-    (N,47), labels (N,))} in the pack layout, with no source dataset (the
-    source-root check is then skipped), and the per-class feature stats
-    of the train split as the dataset prep writes them. Returns the
-    metadata."""
+    (N,47), labels (N,))} in the pack layout through the writer of
+    :func:`pack_dataset`, with no source dataset (the source-root check
+    is then skipped), and the per-class feature stats of the train split
+    where a decoded dataset keeps them. Returns the metadata."""
     os.makedirs(out_dir, exist_ok=True)
     staging = {imgs.shape[1] for imgs, _, _ in splits.values()}
     if len(staging) != 1:
         raise ValueError(f"splits have different staging sizes {staging}")
-    meta = {"format_version": FORMAT_VERSION, "kind": "flat",
-            "staging": staging.pop(), "source_root": "",
-            "class_names": list(class_names), "splits": {}}
+    meta = _new_meta(staging.pop(), "", class_names)
     for split, (imgs, feats, labels) in splits.items():
         if imgs.dtype != np.uint8 or imgs.ndim != 4 or imgs.shape[3] != 3:
             raise ValueError(f"{split}: images must be uint8 (N,S,S,3), "
                              f"got {imgs.dtype} {imgs.shape}")
-        files = split_paths(out_dir, split)
-        np.save(files["images"], imgs)
-        np.save(files["features"], np.asarray(feats, np.float32))
-        np.save(files["labels"], np.asarray(labels, np.int32))
-        meta["splits"][split] = {"count": len(labels)}
+        _write_split(out_dir, meta, split, labels, [(imgs, feats)])
     if "train" in splits:
         _, feats, labels = splits["train"]
         for name, table in zip(STATS_FILES, compute_class_stats(
@@ -161,8 +176,6 @@ def pack_arrays(out_dir: str, splits: dict[str, tuple],
             with open(os.path.join(out_dir, name), "w") as f:
                 json.dump({c: dict(zip(FEATURE_NAMES_47, map(float, row)))
                            for c, row in zip(class_names, table)}, f)
-    with open(os.path.join(out_dir, META_NAME), "w") as f:
-        json.dump(meta, f, indent=1)
     return meta
 
 
@@ -176,7 +189,8 @@ class PackedDataSource(DiskDataSource):
     def __init__(self, cfg: DataConfig, packed_dir: str | None = None,
                  stats: ClassFeatureStats | None = None, seed: int = 0,
                  staging_size: int = 256, use_native: bool = True,
-                 pad_eval_to: int = 1, build: bool = True):
+                 pad_eval_to: int = 1, build: bool = True,
+                 pin_memory: bool = False):
         pdir = packed_dir or cfg.packed_dir
         if not pdir:
             raise ValueError("PackedDataSource needs packed_dir "
@@ -200,6 +214,7 @@ class PackedDataSource(DiskDataSource):
         self.seed = seed
         self.use_native = False
         self.pad_eval_to = pad_eval_to
+        self.pin_memory = pin_memory
         self.packed_dir = pdir
         self.class_names = list(meta["class_names"])
         self.num_classes = len(self.class_names)

@@ -114,6 +114,18 @@ def test_compare(tmp_path, capsys):
         main(["compare", "nonsense", *TINY])
 
 
+def test_kernel_launches_lists_every_kernel():
+    """The counters a card run reports: the training and inference forms
+    of the two main-path kernels, and each stem-BN kernel's count (none
+    on the CPU)."""
+    from surya_tpu_torch.__main__ import kernel_launches
+
+    got = kernel_launches()
+    assert got == {"quadrant": {"training": 0, "inference": 0},
+                   "fusion_head": {"training": 0, "inference": 0},
+                   "channel_stats": 0, "affine_relu": 0}
+
+
 def test_cli_refusals(tmp_path, capsys):
     assert main(["list-presets"]) == 0
     assert len(capsys.readouterr().out.strip().splitlines()) == 16

@@ -343,9 +343,9 @@ def test_device_transform_on_card_matches_cpu(cuda, tmp_path):
 
 
 def test_loop_on_card_launches_both_forms_of_both_kernels(cuda, tmp_path):
-    """Two epochs of train_and_evaluate from a synthetic pack: each train
-    step launches the training forms, each eval batch the inference
-    forms."""
+    """Two epochs of train_and_evaluate from a synthetic pack whose host
+    batches are pinned: each train step launches the training forms, each
+    eval batch the inference forms."""
     from surya_tpu_torch.core.config import get_preset
     from surya_tpu_torch.core.metrics import MetricsLogger
     from surya_tpu_torch.data.packed import PackedDataSource
@@ -357,7 +357,9 @@ def test_loop_on_card_launches_both_forms_of_both_kernels(cuda, tmp_path):
         "model.num_classes": "4", "data.image_size": "64",
         "train.epochs": "2", "train.lr": "1e-3",
         "train.checkpoint_dir": str(tmp_path / "ckpt")})
-    data = PackedDataSource(cfg.data, packed_dir=str(tmp_path / "pack"))
+    data = PackedDataSource(cfg.data, packed_dir=str(tmp_path / "pack"),
+                            pin_memory=True)
+    assert all(t.is_pinned() for t in next(iter(data.train_batches(0))))
     before = {m: (m.launches, m.training_launches) for m in (tquad, thead)}
     summary = train_and_evaluate(cfg, data, logger=MetricsLogger(echo=False))
     for m, (total, training) in before.items():

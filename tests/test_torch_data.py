@@ -45,6 +45,7 @@ from surya_tpu_torch.data.packed import (
     pack_arrays,
     pack_dataset,
     pack_sequences,
+    split_paths,
 )
 from torch_port_fixtures import one_torch_thread  # noqa: F401
 
@@ -292,6 +293,42 @@ def test_pack_resume_and_root_check(disk_dataset, tmp_path, capsys):
     with pytest.raises(FileNotFoundError):
         PackedDataSource(DataConfig(), packed_dir=str(tmp_path / "none"),
                          build=False)
+
+
+def test_pack_arrays_writes_what_pack_dataset_writes(disk_dataset, tmp_path):
+    """One writer behind both: the arrays a decoded pack holds, packed
+    again from memory, give the same files and the same metadata (but the
+    source root, which an in-memory pack has not)."""
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    meta = pack_dataset(disk_dataset, a, staging=40, use_native=False,
+                        verbose=False)
+    src = PackedDataSource(DataConfig(data_root=disk_dataset), packed_dir=a)
+    splits = {s: src._load_batch(s, np.arange(len(src.index[s][2])))
+              for s in meta["splits"]}
+    again = pack_arrays(b, splits, src.class_names)
+    assert again == {**meta, "source_root": ""}
+    for split in splits:
+        for name in ("images", "features", "labels"):
+            with open(split_paths(a, split)[name], "rb") as f, \
+                    open(split_paths(b, split)[name], "rb") as g:
+                assert f.read() == g.read(), (split, name)
+
+
+def test_sources_pin_only_when_asked(disk_dataset, tmp_path):
+    """Host batches stay numpy unless the caller, which knows the batches
+    go to a card, asks for pinned memory."""
+    port, _ = _sources(disk_dataset)
+    pdir = str(tmp_path / "pack")
+    pack_dataset(disk_dataset, pdir, staging=40, use_native=False,
+                 verbose=False)
+    packed = PackedDataSource(DataConfig(data_root=disk_dataset,
+                                         batch_size=4), packed_dir=pdir)
+    for src in (port, packed):
+        assert src.pin_memory is False
+        batch = next(iter(src.train_batches(0)))
+        assert all(isinstance(x, np.ndarray) for x in batch)
+    assert PackedDataSource(DataConfig(data_root=disk_dataset),
+                            packed_dir=pdir, pin_memory=True).pin_memory
 
 
 def test_pack_arrays_round_trip(tmp_path):
