@@ -25,7 +25,21 @@ read just after (the loop's in the CLI processes that run it):
   and resumed;
 - **stem_probe**: a train-mode stem forward (cuDNN conv 7x7/2 on
   (256, 224, 224, 3) bf16, then the two stem-BN kernels) against
-  ``F.batch_norm`` + ReLU on the same map.
+  ``F.batch_norm`` + ReLU on the same map;
+- **spatial**: the other spatial configurations at 224 px, published
+  widths, random weights from seed 0 — the three ``experiment-*`` presets
+  (the quadtree, frozen trunk), the five ``comparative-*`` presets
+  (StandardMultimodalCNN over resnet18/50, vgg16, mobilenet_v2,
+  densenet121), ``hierarchical_quadtree``, ``attention_hierarchical`` and
+  ``standard_resnet``: each one's f32 logits on the card against the CPU,
+  bf16 ``Predictor.predict`` images/s at batch 64 and 5 bf16 train steps
+  at the preset's batch with dropout 0.5, its kernel launches counted
+  exactly; Grad-CAM at f32 on the card against the CPU for every target
+  of the quadtree, the comparative resnet18 and both hierarchical
+  families; the CLI's ``train`` (one epoch on a small synthetic pack) and
+  ``eval`` for ``comparative-mobilenet-v2`` and for ``quadtree-fusion
+  --model.name=hierarchical_quadtree``; and the head kernel timed at the
+  two new edge widths (D 25,344 and D 128 → H 1024).
 
 It times kernels, serving and the train step with CUDA events; each
 main-path kernel in turns with its library yardstick, after the same L2
@@ -74,6 +88,16 @@ QUADRANT_SHAPES = [(64, 14, 256, 128), (3, 28, 32, 16), (8, 8, 16, 8),
 HEAD_SHAPES = [(64, 5376, 2688, 8), (5, 256, 128, 3), (1, 5376, 2688, 8),
                (63, 256, 128, 8), (100, 264, 40, 5), (256, 5376, 2688, 8),
                (257, 512, 2688, 3)]
+# the other spatial families' heads at 224 px (spatial phase): the
+# comparative ones over vgg16 (D 25,344: 396 K steps), resnet50,
+# mobilenet_v2 and densenet121, the hierarchical and attention ones,
+# numerical_only (D 128 → H 1024), standard_resnet, the experiment presets
+SPATIAL_HEAD_SHAPES = [(16, 25344, 512, 8), (64, 2176, 1024, 8),
+                       (64, 1216, 1024, 8), (16, 128, 1024, 8),
+                       (64, 512, 256, 8), (16, 2304, 512, 8),
+                       (64, 1536, 512, 8), (16, 1280, 512, 8),
+                       (16, 5120, 2560, 8), (16, 256, 128, 8)]
+HEAD_SHAPES += SPATIAL_HEAD_SHAPES
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max |kernel - plain| / max |plain|
 
 
@@ -364,6 +388,40 @@ def timed_row(kernel_fn, plain_fn, library_fn, flush, nbytes, flops, plan):
             "plan": plan}
 
 
+def head_timed(fusion_head, shape, flush, train=False):
+    """The head kernel at ``shape`` (B, D, H, C) in bf16, timed in turns
+    with its library composition (addmm + ReLU + addmm; with ``train``,
+    dropout 0.5 and the h output, and F.dropout in the composition)."""
+    bf = torch.bfloat16
+    b, d, hdim, c = shape
+    x, w1, b1, w2, b2 = head_inputs(b, d, hdim, c, bf)
+    b1_bf, b2_bf = b1.to(bf), b2.to(bf)
+    nbytes = ((x.numel() + w1.numel() + w2.numel()) * 2
+              + (b1.numel() + b2.numel() + b * c) * 4)
+    if not train:
+        return timed_row(
+            lambda: fusion_head.fusion_head(x, w1, b1, w2, b2),
+            lambda: fusion_head.fusion_head_plain(x, w1, b1, w2, b2),
+            lambda: torch.addmm(b2_bf, torch.relu(torch.addmm(b1_bf, x,
+                                                              w1.t())),
+                                w2.t()), flush,
+            nbytes=nbytes, flops=2 * b * hdim * (d + c),
+            plan=fusion_head.launch_plan(b, d, hdim))
+    seed = torch.tensor([1234], dtype=torch.int64, device="cuda")
+    keep = torch.rand(b, hdim, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0)) >= 0.5
+    return timed_row(
+        lambda: fusion_head.fusion_head_with_h(x, w1, b1, w2, b2, rate=0.5,
+                                               seed=seed),
+        lambda: fusion_head.fusion_head_plain(x, w1, b1, w2, b2, 0.5, keep,
+                                              with_h=True),
+        # a yardstick only: F.dropout draws from the global generator
+        lambda: torch.addmm(b2_bf, F.dropout(torch.relu(torch.addmm(
+            b1_bf, x, w1.t())), 0.5, True), w2.t()), flush,
+        nbytes=nbytes + b * hdim * 2 + 8, flops=2 * b * hdim * (d + c),
+        plan=fusion_head.launch_plan(b, d, hdim))
+
+
 def time_phase(quadrant, fusion_head, card, hgmma):
     from surya_tpu_torch.ops.quadtree import quadrant_split
 
@@ -390,19 +448,8 @@ def time_phase(quadrant, fusion_head, card, hgmma):
         flops=2 * b * 4 * (2 * hp) ** 2 * 9 * cin * cout,  # pooled outputs
         plan=quadrant.launch_plan(b, h, cin, cout, False))
 
-    b, d, hdim, c = HEAD_SHAPES[0]
-    x, w1, b1, w2, b2 = head_inputs(b, d, hdim, c, bf)
-    b1_bf, b2_bf = b1.to(bf), b2.to(bf)
-    shapes["fusion_head"] = (b, d, hdim, c)
-    rows["fusion_head"] = timed_row(
-        lambda: fusion_head.fusion_head(x, w1, b1, w2, b2),
-        lambda: fusion_head.fusion_head_plain(x, w1, b1, w2, b2),
-        lambda: torch.addmm(b2_bf, torch.relu(torch.addmm(b1_bf, x, w1.t())),
-                            w2.t()), flush,
-        nbytes=((x.numel() + w1.numel() + w2.numel()) * 2
-                + (b1.numel() + b2.numel() + b * c) * 4),
-        flops=2 * b * hdim * (d + c),
-        plan=fusion_head.launch_plan(b, d, hdim))
+    shapes["fusion_head"] = HEAD_SHAPES[0]
+    rows["fusion_head"] = head_timed(fusion_head, HEAD_SHAPES[0], flush)
 
     # the training forms at the train step's batch: all hq x hq conv
     # outputs and the act map; dropout and the h output
@@ -426,25 +473,9 @@ def time_phase(quadrant, fusion_head, card, hgmma):
         flops=2 * b * h * h * 9 * cin * cout,              # every position
         plan=quadrant.launch_plan(b, h, cin, cout, True))
 
-    _, d, hdim, c = HEAD_SHAPES[0]
-    x, w1, b1, w2, b2 = head_inputs(b, d, hdim, c, bf)
-    b1_bf, b2_bf = b1.to(bf), b2.to(bf)
-    seed = torch.tensor([1234], dtype=torch.int64, device="cuda")
-    keep = torch.rand(b, hdim, device="cuda", generator=torch.Generator(
-        device="cuda").manual_seed(0)) >= 0.5
-    shapes["fusion_head_train"] = (b, d, hdim, c)
-    rows["fusion_head_train"] = timed_row(
-        lambda: fusion_head.fusion_head_with_h(x, w1, b1, w2, b2, rate=0.5,
-                                               seed=seed),
-        lambda: fusion_head.fusion_head_plain(x, w1, b1, w2, b2, 0.5, keep,
-                                              with_h=True),
-        # a yardstick only: F.dropout draws from the global generator
-        lambda: torch.addmm(b2_bf, F.dropout(torch.relu(torch.addmm(
-            b1_bf, x, w1.t())), 0.5, True), w2.t()), flush,
-        nbytes=((x.numel() + w1.numel() + w2.numel() + b * hdim) * 2
-                + (b1.numel() + b2.numel() + b * c) * 4 + 8),
-        flops=2 * b * hdim * (d + c),
-        plan=fusion_head.launch_plan(b, d, hdim))
+    shapes["fusion_head_train"] = (b,) + HEAD_SHAPES[0][1:]
+    rows["fusion_head_train"] = head_timed(
+        fusion_head, shapes["fusion_head_train"], flush, train=True)
     after = clocks()
     for name, row in rows.items():
         row["hgmma_in_bf16_body"] = hgmma[name.removesuffix("_train")]
@@ -527,7 +558,8 @@ QUADRANT_TRAIN_SHAPES = [(16, 14, 256, 128), (3, 28, 32, 16), (2, 6, 4, 2),
                          (2, 28, 256, 16), (TRAIN_BATCH, 14, 256, 128)]
 HEAD_TRAIN_SHAPES = [(64, 256, 512, 8), (8, 64, 32, 8), (70, 264, 40, 5),
                      (1, 5376, 2688, 8), (100, 264, 40, 3),
-                     (257, 512, 2688, 8), (TRAIN_BATCH, 5376, 2688, 8)]
+                     (257, 512, 2688, 8), (16, 25344, 512, 8),
+                     (16, 128, 1024, 8), (TRAIN_BATCH, 5376, 2688, 8)]
 # relL2 of a gradient against autograd through the plain version in f32 on
 # the same rounded inputs. f32: both sides sum the same products in another
 # order. bf16: the kernel path rounds cotangents and gradients to bf16.
@@ -1408,6 +1440,346 @@ def loop_phase(card, augment):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the other spatial families: models, serving, train steps, Grad-CAM, CLI
+# ---------------------------------------------------------------------------
+
+# (label, preset, overrides): the eleven spatial configurations at 224 px
+SPATIAL_MODELS = [
+    ("experiment-fusion", "experiment-fusion", {}),
+    ("experiment-image-only", "experiment-image-only", {}),
+    ("experiment-numerical-only", "experiment-numerical-only", {}),
+    ("comparative-resnet18", "comparative-resnet18", {}),
+    ("comparative-resnet50", "comparative-resnet50", {}),
+    ("comparative-vgg16", "comparative-vgg16", {}),
+    ("comparative-mobilenet-v2", "comparative-mobilenet-v2", {}),
+    ("comparative-densenet121", "comparative-densenet121", {}),
+    ("hierarchical_quadtree", "quadtree-fusion",
+     {"model.name": "hierarchical_quadtree"}),
+    ("attention_hierarchical", "quadtree-fusion",
+     {"model.name": "attention_hierarchical"}),
+    ("standard_resnet", "quadtree-fusion", {"model.name": "standard_resnet"}),
+]
+SPATIAL_STEPS, SPATIAL_SERVE = 5, 640
+# Grad-CAM card vs CPU: (label of a model above, targets)
+CAM_TARGETS = [("experiment-fusion", ("layer3", "layer4")),
+               ("comparative-resnet18", ("layer4",)),
+               ("hierarchical_quadtree", ("layer2", "level1", "level2")),
+               ("attention_hierarchical", ("layer2", "level1", "level2"))]
+CAM_BATCH, CAM_TOL = 4, 2e-4
+# the CLI runs: a small pack (the loop phase runs the replay set's sizes)
+SPATIAL_SPLITS = {"train": 128, "valid": 64, "test": 64}
+SPATIAL_CLI = [["--preset", "comparative-mobilenet-v2"],
+               ["--preset", "quadtree-fusion",
+                "--model.name=hierarchical_quadtree"]]
+
+
+def spatial_config(preset, overrides):
+    from surya_tpu_torch.core.config import get_preset
+
+    return get_preset(preset).override(overrides)
+
+
+def reset_launches(*modules):
+    for m in modules:
+        m.launches = m.training_launches = 0
+
+
+def read_launches(quadrant, fusion_head):
+    return {f"{name}{form}": (m.training_launches if form
+                              else m.launches - m.training_launches)
+            for name, m in (("quadrant", quadrant),
+                            ("fusion_head", fusion_head))
+            for form in ("", "_train")}
+
+
+def spatial_model(label, cfg, images, feats, quadrant, fusion_head, card):
+    """One configuration at 224 px, random weights from seed 0: f32 logits
+    on the card against the CPU (B = 2), bf16 ``Predictor.predict`` images/s
+    at batch 64, 5 bf16 train steps at the preset's batch (dropout 0.5),
+    and the two kernels' launches in each, counted exactly."""
+    from surya_tpu_torch.infer.serve import Predictor
+    from surya_tpu_torch.models import get_model
+    from surya_tpu_torch.train import create_train_state, make_train_step
+
+    size = cfg.data.image_size
+    f32 = dataclasses.replace(cfg.model, compute_dtype="float32")
+    base = get_model(f32, image_size=size, seed=0)
+    state = base.state_dict()
+    head = [base.classifier.fc1.in_features, base.classifier.fc1.out_features]
+    has_quadrant = hasattr(base, "quadrant_conv_kernel")
+    forms = {"quadrant": int(has_quadrant), "fusion_head": 1}
+
+    x = torch.from_numpy(images[:2]).float() / 255.0
+    f = torch.from_numpy(feats[:2])
+    with torch.no_grad():
+        want = base(x, f)
+        gpu = copy.deepcopy(base).cuda()
+        if hasattr(gpu, "trunk"):
+            gpu.trunk.to(memory_format=torch.channels_last)
+        reset_launches(quadrant, fusion_head)
+        got = gpu(x.cuda(), f.cuda())
+        torch.cuda.synchronize()
+    f32_launches = read_launches(quadrant, fusion_head)
+    del gpu
+    err, rel = compare(got.cpu(), want)
+    assert rel <= TOL["float32"] and bool(torch.isfinite(got).all()), (
+        label, err, rel)
+    assert f32_launches == {"quadrant": forms["quadrant"], "quadrant_train": 0,
+                            "fusion_head": 1, "fusion_head_train": 0}, (
+        label, f32_launches)
+
+    predictor = Predictor(cfg.model, state, batch_size=64,
+                          param_dtype=torch.bfloat16, input_dtype="uint8")
+    predictor.predict(images[:64], feats[:64])             # warm-up
+    reset_launches(quadrant, fusion_head)
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        preds, probs = predictor.predict(images, feats)
+        rates.append(len(images) / (time.perf_counter() - t0))
+    chunks = 3 * len(images) // 64
+    serve_launches = read_launches(quadrant, fusion_head)
+    assert preds.shape == (len(images),) and np.isfinite(probs).all()
+    assert serve_launches == {
+        "quadrant": chunks * forms["quadrant"], "quadrant_train": 0,
+        "fusion_head": chunks, "fusion_head_train": 0}, (
+        label, serve_launches)
+    del predictor
+
+    model = get_model(cfg.model, image_size=size, seed=0)
+    model.load_state_dict(state, strict=True)
+    assert model.classifier.dropout == 0.5
+    train_state, tx = create_train_state(model, cfg)
+    step = make_train_step(model, tx, cfg)
+    batch = tuple(torch.from_numpy(a).cuda()
+                  for a in train_batch(cfg, cfg.data.batch_size))
+    reset_launches(quadrant, fusion_head)
+    losses, ms = [], []
+    for _ in range(SPATIAL_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        train_state, metrics = step(train_state, batch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    train_launches = read_launches(quadrant, fusion_head)
+    assert np.isfinite(losses).all(), (label, losses)
+    assert train_launches == {
+        "quadrant": 0, "quadrant_train": SPATIAL_STEPS * forms["quadrant"],
+        "fusion_head": 0, "fusion_head_train": SPATIAL_STEPS}, (
+        label, train_launches)
+    frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+    row = {"phase": "spatial", "model": label, "family": cfg.model.name,
+           "backbone": cfg.model.backbone, "mode": cfg.model.mode,
+           "freeze_backbone": cfg.model.freeze_backbone, "image_size": size,
+           "head_d_h": head, "frozen_params": len(frozen),
+           "f32_card_vs_cpu": {"batch": 2, "max_abs_err": err,
+                               "max_rel_err": rel, "tol": TOL["float32"]},
+           "serve": {"batch_size": 64, "images": len(images), "runs": 3,
+                     "img_per_s": rates,
+                     "img_per_s_median": statistics.median(rates)},
+           "train": {"batch": cfg.data.batch_size, "dtype": "bfloat16",
+                     "dropout": 0.5, "losses": losses, "step_ms": ms,
+                     "step_ms_median": statistics.median(ms)},
+           "launches": {"f32_forward": f32_launches, "serve": serve_launches,
+                        "train": train_launches}, **card}
+    emit(row)
+    del model, train_state, tx, step
+    torch.cuda.empty_cache()
+    return state, row
+
+
+def spatial_cam(states, quadrant, fusion_head, card):
+    """Grad-CAM at f32, B = 4, on the card against the CPU for every target
+    of the quadtree, the comparative resnet18 and both hierarchical
+    families. Two comparisons, heatmaps to 2e-4 and preds equal in each:
+
+    - from the same target activation: the CPU runs the tail (the rest of
+      the model and the backward) from the card's activation and
+      constants, so what is compared is the card's tail — kernels in their
+      training forms, autograd, the CAM and the quadrant merges;
+    - end to end, from the same images: asserted where the tail's backward
+      crosses no trunk stage. Where it does (quadtree ``layer3`` →
+      layer4, hierarchical ``layer2`` → layer3 and layer4) it is reported:
+      there the trunk's forward on the card and the CPU differs by ~1e-6
+      relative, which moves the ReLU masks of the few pre-activations that
+      close to 0, and the gradient with them (measured: layer4's backward
+      to the layer3 map 1% apart in relative L2, the layer3 CAM 6.5e-4)."""
+    from surya_tpu_torch.interpret.gradcam import (
+        cam_from,
+        cam_model,
+        cam_split,
+        grad_cam_of,
+    )
+
+    rng = np.random.default_rng(2)
+    rows, totals = [], dict.fromkeys(
+        ("quadrant", "quadrant_train", "fusion_head", "fusion_head_train"), 0)
+    for label, targets in CAM_TARGETS:
+        cfg = spatial_config(*{lb: (p, o) for lb, p, o in SPATIAL_MODELS}[
+            label])
+        size = cfg.data.image_size
+        images = rng.normal(size=(CAM_BATCH, size, size, 3)).astype(
+            np.float32)
+        feats = rng.normal(size=(CAM_BATCH, cfg.model.num_features)).astype(
+            np.float32)
+        models = {dev: cam_model(cfg.model, states[label], size, dev)
+                  for dev in ("cuda", "cpu")}
+        for target in targets:
+            reset_launches(quadrant, fusion_head)
+            cam_g, pred_g, logit_g = grad_cam_of(
+                cfg.model, models["cuda"], images, feats, target)
+            torch.cuda.synchronize()
+            launches = read_launches(quadrant, fusion_head)
+            cam_c, pred_c, logit_c = grad_cam_of(
+                cfg.model, models["cpu"], images, feats, target)
+            act, consts, merges = cam_split(
+                cfg.model, models["cuda"], torch.from_numpy(images).cuda(),
+                target)
+            cam_s, pred_s, _ = cam_from(
+                cfg.model, models["cpu"], act.cpu(),
+                {k: v.cpu() for k, v in consts.items()}, merges,
+                torch.from_numpy(feats), target)
+            through_trunk = target in ("layer3", "layer2")
+            row = {"model": label, "target": target,
+                   "shape": list(cam_g.shape), "tol": CAM_TOL,
+                   "same_activation": {
+                       "max_abs_err": (cam_g.cpu() - cam_s).abs().max()
+                       .item(),
+                       "preds_equal": bool(torch.equal(pred_g.cpu(),
+                                                       pred_s))},
+                   "end_to_end": {
+                       "max_abs_err": (cam_g.cpu() - cam_c).abs().max()
+                       .item(),
+                       "preds_equal": bool(torch.equal(pred_g.cpu(),
+                                                       pred_c)),
+                       "logits_max_rel_err": compare(logit_g.cpu(),
+                                                     logit_c)[1],
+                       "asserted": not through_trunk},
+                   "launches": launches}
+            rows.append(row)
+            for k, v in launches.items():
+                totals[k] += v
+            same, e2e = row["same_activation"], row["end_to_end"]
+            assert same["max_abs_err"] <= CAM_TOL and same["preds_equal"], row
+            assert e2e["preds_equal"], row
+            assert through_trunk or e2e["max_abs_err"] <= CAM_TOL, row
+            # the tail runs the head once, in its training form
+            assert launches["fusion_head_train"] == 1, row
+        del models
+    emit({"phase": "spatial_cam", "batch": CAM_BATCH, "dtype": "float32",
+          "cams": rows, "launches": totals, **card})
+    return totals
+
+
+def spatial_cli(card):
+    """``python -m surya_tpu_torch train`` for one epoch on a small seeded
+    pack for ``comparative-mobilenet-v2`` and for ``quadtree-fusion
+    --model.name=hierarchical_quadtree``, then ``eval`` on each best
+    checkpoint: finite losses, eval = the loop's test loss, and each
+    child's head launches counted exactly."""
+    import shutil
+    import tempfile
+
+    from surya_tpu_torch.data.packed import pack_arrays
+
+    root = tempfile.mkdtemp(prefix="surya_spatial_")
+    rows, totals = [], {"fusion_head": 0, "fusion_head_train": 0}
+    try:
+        pack = os.path.join(root, "pack")
+        pack_arrays(pack, synthetic_splits(SPATIAL_SPLITS), CLASS_NAMES)
+        steps = SPATIAL_SPLITS["train"] // 16
+        tests = SPATIAL_SPLITS["test"] // 16
+        for i, preset in enumerate(SPATIAL_CLI):
+            flags = [*preset, f"--data.packed_dir={pack}"]
+            run = os.path.join(root, f"run{i}")
+            t0 = time.perf_counter()
+            _, summary = run_cli(["train", *flags, "--out", run,
+                                  "--train.epochs=1"])
+            train_s = time.perf_counter() - t0
+            epochs = epoch_records(run)
+            want = {"training": steps,
+                    "inference": SPATIAL_SPLITS["valid"] // 16 + tests}
+            launches = summary["kernel_launches"]
+            assert launches["fusion_head"] == want, (preset, launches)
+            assert launches["quadrant"] == {"training": 0, "inference": 0}
+            assert [r["steps"] for r in epochs] == [steps]
+            assert np.isfinite(epochs[0]["train_loss"]), epochs
+            assert np.isfinite(summary["test"]["loss"]), summary
+            best = os.path.join(run, "ckpt", f"{summary['best_epoch']}.pt")
+            _, ev = run_cli(["eval", best, *flags])
+            assert ev["kernel_launches"]["fusion_head"] == {
+                "training": 0, "inference": tests}, ev["kernel_launches"]
+            assert ev["count"] == summary["test"]["count"]
+            assert abs(ev["loss"] - summary["test"]["loss"]) <= 1e-5 * max(
+                1.0, abs(summary["test"]["loss"])), (ev, summary["test"])
+            totals["fusion_head"] += want["inference"] + tests
+            totals["fusion_head_train"] += steps
+            rows.append({"args": preset, "train_cli_s": train_s,
+                         "train_loss": epochs[0]["train_loss"],
+                         "val_loss": epochs[0]["val_loss"],
+                         "test_loss": summary["test"]["loss"],
+                         "eval_loss": ev["loss"],
+                         "images_per_sec": epochs[0]["images_per_sec"],
+                         "launches": launches,
+                         "eval_launches": ev["kernel_launches"]})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "spatial_cli", "images": SPATIAL_SPLITS, "runs": rows,
+          **card})
+    return totals
+
+
+def spatial_phase(quadrant, fusion_head, card):
+    """Every spatial configuration (:data:`SPATIAL_MODELS`), Grad-CAM card
+    vs CPU, the CLI on two of them, and the head kernel timed at the two
+    new edge widths (VGG16's D = 25,344 and numerical_only's D = 128 →
+    H = 1024) in both forms. → (launches of the whole phase per kernel
+    form, timed rows)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (SPATIAL_SERVE, 224, 224, 3),
+                          dtype=np.uint8)
+    feats = rng.normal(size=(SPATIAL_SERVE, 47)).astype(np.float32)
+    totals = dict.fromkeys(
+        ("quadrant", "quadrant_train", "fusion_head", "fusion_head_train"), 0)
+    states, summary = {}, []
+    for label, preset, overrides in SPATIAL_MODELS:
+        cfg = spatial_config(preset, overrides)
+        states[label], row = spatial_model(label, cfg, images, feats,
+                                           quadrant, fusion_head, card)
+        for part in row["launches"].values():
+            for k, v in part.items():
+                totals[k] += v
+        summary.append({"model": label, "head_d_h": row["head_d_h"],
+                        "f32_max_rel_err": row["f32_card_vs_cpu"][
+                            "max_rel_err"],
+                        "serve_img_per_s": row["serve"]["img_per_s_median"],
+                        "train_step_ms": row["train"]["step_ms_median"]})
+    del images, feats
+    for k, v in spatial_cam(states, quadrant, fusion_head, card).items():
+        totals[k] += v
+    for k, v in spatial_cli(card).items():
+        totals[k] += v
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    timed = {}
+    for shape in ((16, 25344, 512, 8), (16, 128, 1024, 8)):
+        for train in (False, True):
+            name = "fusion_head_train" if train else "fusion_head"
+            row = head_timed(fusion_head, shape, flush, train)
+            timed[(name, shape)] = row
+            emit({"phase": "time", "kernel": name, "dtype": "bfloat16",
+                  "clocks_after": clocks(), "shape": list(shape), **row,
+                  **card})
+    emit({"phase": "spatial_summary", "models": summary, "launches": totals,
+          "seconds": time.perf_counter() - t0, **card})
+    return totals, timed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1447,6 +1819,11 @@ def main() -> int:
     loop_launches = loop_phase(card, augment)
     stem_launches, stem_times = stem_probe(stem_bn, card)
     times.update(stem_times)
+    torch.cuda.empty_cache()
+    spatial_launches, _ = spatial_phase(quadrant, fusion_head, card)
+    if min(spatial_launches.values()) < 1:
+        raise AssertionError(f"a kernel form was never launched on the "
+                             f"spatial path: {spatial_launches}")
 
     # name → (source, replaces, launches on its path, max |kernel - plain|
     # at the shape that path gives it, bf16)
@@ -1470,18 +1847,22 @@ def main() -> int:
         "affine_relu": ("stem_bn", "surya_tpu/ops/pallas/stem_bn.py:71",
                         stem_launches["affine_relu"],
                         stem_times["affine_relu"])}
-    # launches on every path: serve, train and stem probe in this process,
-    # the loop's in its own (the CLI child's counters)
+    # launches on every path: serve, train, stem probe and spatial in this
+    # process, the loop's (and the spatial CLI runs') in the CLI children
     paths = {
         "quadrant": {"serve": serve_launches["quadrant"],
-                     "loop": loop_launches["quadrant"]["inference"]},
+                     "loop": loop_launches["quadrant"]["inference"],
+                     "spatial": spatial_launches["quadrant"]},
         "fusion_head": {"serve": serve_launches["fusion_head"],
-                        "loop": loop_launches["fusion_head"]["inference"]},
+                        "loop": loop_launches["fusion_head"]["inference"],
+                        "spatial": spatial_launches["fusion_head"]},
         "quadrant_train": {"train": train_launches["quadrant"],
-                           "loop": loop_launches["quadrant"]["training"]},
+                           "loop": loop_launches["quadrant"]["training"],
+                           "spatial": spatial_launches["quadrant_train"]},
         "fusion_head_train": {
             "train": train_launches["fusion_head"],
-            "loop": loop_launches["fusion_head"]["training"]},
+            "loop": loop_launches["fusion_head"]["training"],
+            "spatial": spatial_launches["fusion_head_train"]},
         "channel_stats": {"stem_probe": stem_launches["channel_stats"],
                           "loop": loop_launches["channel_stats"]},
         "affine_relu": {"stem_probe": stem_launches["affine_relu"],

@@ -7,14 +7,17 @@ JAX package so each counterpart is easy to find:
 - ``core``     — config tree and presets (a copy of the JAX one)
 - ``ops``      — quadrant split/merge, and ``ops/cuda``: the hand-written
                  CUDA kernels that replace the Pallas TPU kernels
-- ``models``   — ResNet trunk, heads, QuadtreeCNN, losses, registry, JAX
-                 weight import
+- ``models``   — backbones (ResNet with the s2d stem and folded BN, VGG16,
+                 MobileNetV2, DenseNet121), heads, the spatial families
+                 (quadtree, hierarchical, attention, standard), losses,
+                 registry, JAX weight import
 - ``data``     — host batches (in-memory, disk, packed), the device-side
                  augmentation and imputation
 - ``native``   — the ctypes JPEG batch decoder (host side)
 - ``train``    — the train and eval steps (AdamW, clip, freeze, NaN guard),
                  the epoch loop with checkpoints and resume, comparison
 - ``infer``    — fixed-batch ``Predictor`` and the HTTP server
+- ``interpret`` — Grad-CAM by autograd, the hierarchical feature maps
 - ``core``     — also checkpoints, metrics and the named random streams
 - ``features`` — the 47 feature names; ``utils`` — plots
 

@@ -9,6 +9,7 @@
   python -m surya_tpu_torch compare NAME=CKPT:PRESET ... [--split valid] [--out DIR]
   python -m surya_tpu_torch pack --root DATA --out DIR [--staging 256]
   python -m surya_tpu_torch serve CKPT [--preset P] [--port 8577] [--classes names.json]
+  python -m surya_tpu_torch cam CKPT [--preset P] [--target layer4] [--out DIR] [--limit N]
 
 CKPT is a checkpoint directory written by ``train`` (its latest step), one
 of its ``<step>.pt`` files, a ``.pt`` of the port's ``state_dict`` or a
@@ -188,6 +189,57 @@ def cmd_eval(argv: list[str]) -> int:
     return 0
 
 
+def cmd_cam(argv: list[str]) -> int:
+    """Grad-CAM overlays of a checkpoint on a split (``interpret/
+    gradcam.py``): the model classifies the transformed batch, the overlay
+    is drawn on the raw one; one JPEG per image, in a directory per true
+    class."""
+    import argparse
+
+    from surya_tpu_torch.core.checkpoint import load_checkpoint_variables
+    from surya_tpu_torch.interpret.gradcam import save_batch_grad_cam
+    from surya_tpu_torch.ops import resolve_device
+    from surya_tpu_torch.train.steps import to_device
+
+    ap = argparse.ArgumentParser(prog="surya_tpu_torch cam")
+    ap.add_argument("checkpoint")
+    ap.add_argument("--preset", default="quadtree-fusion")
+    ap.add_argument("--split", default="test")
+    ap.add_argument("--out", default="runs/cams")
+    ap.add_argument("--target", default="layer4",
+                    help="layer3|layer4 (quadtree), "
+                         "layer2|level1|level2 (hierarchical families)")
+    ap.add_argument("--alpha", type=float, default=0.4)
+    ap.add_argument("--limit", type=int, default=0,
+                    help="max batches (0 = all)")
+    ap.add_argument("--synthetic", action="store_true")
+    ap.add_argument("--device", default=None)
+    args, rest = ap.parse_known_args(argv)
+    device = resolve_device(args.device)
+    cfg, _ = _config(args, rest)
+    data = _build_data(cfg, device)
+    state_dict = load_checkpoint_variables(args.checkpoint)
+    names = getattr(data, "class_names",
+                    [str(i) for i in range(cfg.model.num_classes)])
+    transform = getattr(data, "device_transform", None)
+
+    def batches():
+        for i, b in enumerate(data.eval_batches(args.split)):
+            if args.limit and i >= args.limit:
+                break
+            if transform is None:
+                yield b
+            else:   # classify the normalised images, overlay on the raw
+                mb = transform(args.split, None, to_device(b, device))
+                yield mb[0], mb[1], b[2], b[0]
+
+    n = save_batch_grad_cam(cfg.model, state_dict, batches(), names,
+                            args.out, target_layer=args.target,
+                            alpha=args.alpha, device=device)
+    print(f"wrote {n} CAM overlays to {args.out}")
+    return 0
+
+
 def cmd_pack(argv: list[str]) -> int:
     """Build the packed pre-decoded dataset cache (``data/packed.py``):
     one offline decode pass, then decode-free epochs through
@@ -299,7 +351,7 @@ def main(argv: list[str] | None = None) -> int:
     if cmd == "list-presets":
         return cmd_list_presets()
     commands = {"train": cmd_train, "eval": cmd_eval, "pack": cmd_pack,
-                "compare": cmd_compare}
+                "compare": cmd_compare, "cam": cmd_cam}
     if cmd in commands:
         return commands[cmd](rest)
     if cmd == "serve":

@@ -1,6 +1,7 @@
 """Shared model components, mirroring ``surya_tpu/models/common.py``:
-the mode switch, the numerical-feature MLP (47→94→256, no final
-activation) and the fusion classifier, whose forward is the fused head
+the mode switch, the numerical-feature MLPs (47→94→256 with no final
+activation; the hierarchical families' 47→128→ReLU→Dropout) and the
+fusion classifier, whose forward is the fused head
 (``ops/cuda/fusion_head.py``): the CUDA kernel for a CUDA tensor, its
 plain version for a CPU tensor.
 
@@ -18,7 +19,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from surya_tpu_torch.models.backbones.resnet import lecun_normal_
+from surya_tpu_torch.models.backbones.resnet import (
+    lecun_normal_,
+    reset_conv_and_norm,
+)
 from surya_tpu_torch.ops.cuda.fusion_head import fusion_head
 
 MODES = ("fusion", "image_only", "numerical_only")
@@ -58,6 +62,25 @@ def reset_dense(layer: nn.Linear, generator=None) -> None:
         layer.bias.zero_()
 
 
+def reset_model(model: nn.Module, generator=None) -> None:
+    """JAX's init for every Conv, BatchNorm and Linear in ``model``."""
+    reset_conv_and_norm(model, generator)
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            reset_dense(m, generator)
+
+
+def flax_dropout(x, rate: float, generator, training: bool):
+    """flax ``Dropout``: keep with probability 1 - rate, scale the kept by
+    1/(1 - rate); the mask is drawn from ``generator`` (none in eval mode
+    or at rate 0)."""
+    g = dropout_generator(generator, rate, training)
+    if g is None:
+        return x
+    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 class NumericalMLP(nn.Module):
     """in → 2·in → ReLU → Dropout → out (no final activation)."""
 
@@ -71,24 +94,36 @@ class NumericalMLP(nn.Module):
     def forward(self, x, generator=None):
         dt = self.dtype
         x = F.linear(x.to(dt), self.fc1.weight.to(dt), self.fc1.bias.to(dt))
-        x = F.relu(x)
-        g = dropout_generator(generator, self.dropout, self.training)
-        if g is not None:   # flax Dropout: keep with 1 - rate, scale kept
-            keep = torch.rand(x.shape, generator=g,
-                              device=x.device) >= self.dropout
-            x = torch.where(keep, x / (1.0 - self.dropout),
-                            torch.zeros_like(x))
+        x = flax_dropout(F.relu(x), self.dropout, generator, self.training)
         return F.linear(x, self.fc2.weight.to(dt), self.fc2.bias.to(dt))
 
 
+class SingleLayerNumericalMLP(nn.Module):
+    """in → out → ReLU → Dropout: the hierarchical families' numerical
+    branch, with dropout as the *last* op (active on the output)."""
+
+    def __init__(self, in_dim: int = 47, out_dim: int = 128,
+                 dropout: float = 0.5, dtype=torch.bfloat16):
+        super().__init__()
+        self.fc1 = nn.Linear(in_dim, out_dim)
+        self.dropout, self.dtype = dropout, dtype
+
+    def forward(self, x, generator=None):
+        dt = self.dtype
+        x = F.linear(x.to(dt), self.fc1.weight.to(dt), self.fc1.bias.to(dt))
+        return flax_dropout(F.relu(x), self.dropout, generator,
+                            self.training)
+
+
 class FusionClassifier(nn.Module):
-    """concat(features) → hidden (in_dim // 2) → ReLU → Dropout → f32
-    logits, computed by the fused head."""
+    """concat(features) → hidden → ReLU → Dropout → f32 logits, computed
+    by the fused head. ``hidden_dim`` defaults to in_dim // 2 (at least
+    the class count), as in JAX."""
 
     def __init__(self, in_dim: int, num_classes: int, dropout: float = 0.5,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, hidden_dim: int | None = None):
         super().__init__()
-        hidden = max(in_dim // 2, num_classes)
+        hidden = hidden_dim or max(in_dim // 2, num_classes)
         self.fc1 = nn.Linear(in_dim, hidden)
         self.fc2 = nn.Linear(hidden, num_classes)
         self.dropout, self.dtype = dropout, dtype

@@ -3,7 +3,10 @@
 
 The port's module names follow the flax tree, so the mapping is by leaf:
 
-- conv ``kernel`` (H, W, I, O) → ``weight`` (O, I, H, W)
+- conv ``kernel`` (H, W, I, O) → ``weight`` (O, I, H, W); a depthwise
+  kernel (3, 3, 1, C) becomes the (C, 1, 3, 3) weight of a
+  ``groups=C`` conv, and the biases of convs with one (VGG, the
+  hierarchical levels, a folded trunk) stay ``bias``
 - Dense ``kernel`` (in, out) → ``weight`` (out, in)
 - BN ``scale``/``bias`` → ``weight``/``bias``;
   ``batch_stats`` ``mean``/``var`` → ``running_mean``/``running_var``

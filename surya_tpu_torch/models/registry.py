@@ -1,7 +1,10 @@
 """Model registry — the single ``get_model`` factory, mirroring
-``surya_tpu/models/registry.py``. Only the quadtree family is ported so
-far; every other family raises ``NotImplementedError`` naming the
-ROADMAP item that ports it."""
+``surya_tpu/models/registry.py``. Every spatial family is ported; the
+temporal families raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
+
+As in JAX, ``cfg.dropout`` reaches the quadtree only: the hierarchical
+and standard families keep their reference dropout of 0.5."""
 
 from __future__ import annotations
 
@@ -14,38 +17,71 @@ TEMPORAL_MODELS = frozenset({"cnn_lstm", "ji_3dcnn", "quadtree_3d",
                              "resnet3d_video", "hybrid_quadtree_3d",
                              "fact"})
 
-_NOT_YET = {
-    "hierarchical_quadtree": "A8 (other spatial families)",
-    "attention_hierarchical": "A8 (other spatial families)",
-    "standard_resnet": "A8 (other spatial families)",
-    "standard_multimodal": "A8 (other spatial families)",
-    **{name: "A9 (temporal families)" for name in TEMPORAL_MODELS},
-}
+
+def _quadtree(cfg: ModelConfig, common: dict):
+    from surya_tpu_torch.models.spatial.quadtree import QuadtreeCNN
+
+    kw = {} if cfg.dropout is None else {"dropout": cfg.dropout}
+    return QuadtreeCNN(mode=cfg.mode, num_features=cfg.num_features,
+                       **common, **kw)
+
+
+def _hierarchical(cfg: ModelConfig, common: dict):
+    from surya_tpu_torch.models.spatial.hierarchical import (
+        HierarchicalQuadtreeCNN,
+    )
+
+    return HierarchicalQuadtreeCNN(mode=cfg.mode,
+                                   num_features=cfg.num_features, **common)
+
+
+def _attention(cfg: ModelConfig, common: dict):
+    from surya_tpu_torch.models.spatial.hierarchical import (
+        AttentionHierarchicalCNN,
+    )
+
+    return AttentionHierarchicalCNN(mode=cfg.mode,
+                                    num_features=cfg.num_features, **common)
+
+
+def _standard_resnet(cfg: ModelConfig, common: dict):
+    from surya_tpu_torch.models.spatial.standard import StandardResNetCNN
+
+    return StandardResNetCNN(**common)
+
+
+def _standard_multimodal(cfg: ModelConfig, common: dict):
+    from surya_tpu_torch.models.spatial.standard import StandardMultimodalCNN
+
+    return StandardMultimodalCNN(mode=cfg.mode,
+                                 num_features=cfg.num_features, **common)
+
+
+_REGISTRY = {"quadtree": _quadtree,
+             "hierarchical_quadtree": _hierarchical,
+             "attention_hierarchical": _attention,
+             "standard_resnet": _standard_resnet,
+             "standard_multimodal": _standard_multimodal}
 
 
 def list_models() -> list[str]:
-    return ["quadtree"]
+    return sorted(_REGISTRY)
 
 
 def get_model(cfg: ModelConfig, image_size: int = 224,
               seed: int = 0) -> torch.nn.Module:
     """Build a model from a ModelConfig, initialised as JAX initialises
     it (same distributions) from a torch Generator seeded with ``seed``."""
-    if cfg.name in _NOT_YET:
+    if cfg.name in TEMPORAL_MODELS:
         raise NotImplementedError(
-            f"model {cfg.name!r} is not ported yet: ROADMAP {_NOT_YET[cfg.name]}")
-    if cfg.name != "quadtree":
+            f"model {cfg.name!r} is not ported yet: ROADMAP A9 (temporal "
+            "families)")
+    if cfg.name not in _REGISTRY:
         raise ValueError(
             f"unknown model {cfg.name!r}; available: {list_models()}")
-    if cfg.stem_space_to_depth:
-        raise NotImplementedError(
-            "stem_space_to_depth is not ported yet: ROADMAP A8")
-    from surya_tpu_torch.models.spatial.quadtree import QuadtreeCNN
-
-    kw = {} if cfg.dropout is None else {"dropout": cfg.dropout}
-    model = QuadtreeCNN(num_classes=cfg.num_classes, mode=cfg.mode,
-                        backbone=cfg.backbone, num_features=cfg.num_features,
-                        dtype=getattr(torch, cfg.compute_dtype),
-                        image_size=image_size, **kw)
+    model = _REGISTRY[cfg.name](cfg, {
+        "num_classes": cfg.num_classes, "backbone": cfg.backbone,
+        "dtype": getattr(torch, cfg.compute_dtype),
+        "stem_s2d": cfg.stem_space_to_depth, "image_size": image_size})
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.eval()

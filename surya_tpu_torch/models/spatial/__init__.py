@@ -1,1 +1,2 @@
-"""Spatial model families (QuadtreeCNN so far)."""
+"""Spatial model families: the quadtree, the hierarchical and attention
+quadtrees, and the standard (ResNet and comparative multimodal) ones."""

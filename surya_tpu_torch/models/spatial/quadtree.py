@@ -25,6 +25,7 @@ import torch.nn as nn
 
 from surya_tpu_torch.models.backbones.resnet import (
     feature_dim,
+    global_avg_pool,
     lecun_normal_,
     make_resnet,
 )
@@ -54,13 +55,14 @@ class QuadtreeCNN(nn.Module):
                  backbone: str = "resnet18", quadrant_channels: int = 128,
                  num_mlp_out: int = 256, num_features: int = 47,
                  dropout: float = 0.5, dtype=torch.bfloat16,
-                 image_size: int = 224):
+                 image_size: int = 224, stem_s2d: bool = False):
         super().__init__()
         check_mode(mode)
         self.mode, self.dtype = mode, dtype
         in_dim = 0
         if mode != "numerical_only":
-            self.trunk = make_resnet(backbone, dtype=dtype)
+            self.trunk = make_resnet(backbone, dtype=dtype,
+                                     stem_s2d=stem_s2d)
             cin = feature_dim(backbone) // 2   # layer3 channels
             hp = layer3_size(image_size) // 4
             self.quadrant_conv_kernel = nn.Parameter(
@@ -91,15 +93,24 @@ class QuadtreeCNN(nn.Module):
                 generator: torch.Generator | None = None):
         """images (B, H, W, 3) NHWC, numerical (B, F) → (B, C) f32 logits.
         ``generator``: the dropout stream (train mode with dropout > 0)."""
-        img_feat = num_feat = None
+        fmap = gmap = None
         if self.mode != "numerical_only":
             outs = self.trunk(images, upto="layer4", capture=("layer3",))
-            # channels_last makes this NHWC view contiguous: no copy
-            fmap = outs["layer3"].contiguous()
-            global_feat = outs["out"].float().mean(dim=(1, 2)).to(self.dtype)
-            quad_flat = quadrant_process(fmap, self.quadrant_conv_kernel,
+            fmap, gmap = outs["layer3"], outs["out"]
+        return self.head(fmap, gmap, numerical, generator)
+
+    def head(self, fmap, gmap, numerical, generator=None):
+        """Logits from the layer3 map ``fmap`` and the layer4 map ``gmap``
+        (NHWC; None in numerical_only mode): the part of the forward after
+        the trunk, which Grad-CAM differentiates."""
+        img_feat = num_feat = None
+        if self.mode != "numerical_only":
+            # channels_last makes the NHWC view contiguous: no copy
+            quad_flat = quadrant_process(fmap.contiguous(),
+                                         self.quadrant_conv_kernel,
                                          self.quadrant_conv_bias)
-            img_feat = torch.cat([global_feat, quad_flat.to(self.dtype)], -1)
+            img_feat = torch.cat([global_avg_pool(gmap, self.dtype),
+                                  quad_flat.to(self.dtype)], -1)
         if self.mode != "image_only":
             num_feat = self.numerical_mlp(numerical, generator)
         return self.classifier(fuse_by_mode(self.mode, img_feat, num_feat),

@@ -15,6 +15,7 @@ from surya_tpu_torch.models import get_model
 from surya_tpu_torch.models.from_jax import from_jax_variables
 from surya_tpu_torch.models.spatial.quadtree import QuadtreeCNN
 from test_torch_resnet import numpy_variables
+from torch_port_fixtures import one_torch_thread  # noqa: F401
 
 MODES = ("fusion", "image_only", "numerical_only")
 
@@ -66,11 +67,25 @@ def test_classifier_width_at_224(mode, hidden):
 
 
 def test_registry_names_roadmap_items():
-    with pytest.raises(NotImplementedError, match="A9"):
-        get_model(ModelConfig(name="fact"))
-    with pytest.raises(NotImplementedError, match="A8"):
-        get_model(ModelConfig(name="standard_multimodal"))
-    with pytest.raises(NotImplementedError, match="A8"):
-        get_model(ModelConfig(stem_space_to_depth=True))
+    """Every spatial family builds (the comparative one over each backbone,
+    and the space-to-depth stem); only the temporal families raise, naming
+    ROADMAP A9; an unknown name is a ValueError."""
+    from surya_tpu_torch.models import TEMPORAL_MODELS, list_models
+
+    assert list_models() == ["attention_hierarchical",
+                             "hierarchical_quadtree", "quadtree",
+                             "standard_multimodal", "standard_resnet"]
+    for name in TEMPORAL_MODELS:
+        with pytest.raises(NotImplementedError, match="A9"):
+            get_model(ModelConfig(name=name))
+    for name in list_models():
+        get_model(ModelConfig(name=name, compute_dtype="float32"),
+                  image_size=64)
+    for backbone in ("resnet18", "resnet50", "vgg16", "mobilenet_v2",
+                     "densenet121"):
+        get_model(ModelConfig(name="standard_multimodal", backbone=backbone,
+                              compute_dtype="float32"), image_size=64)
+    assert get_model(ModelConfig(stem_space_to_depth=True),
+                     image_size=64).trunk.conv1.weight.shape == (64, 12, 4, 4)
     with pytest.raises(ValueError, match="unknown model"):
         get_model(ModelConfig(name="nope"))
