@@ -368,3 +368,58 @@ def test_loop_on_card_launches_both_forms_of_both_kernels(cuda, tmp_path):
     assert summary["test"]["count"] == 16
     assert summary["state"].model.classifier.fc1.weight.device.type == "cuda"
     assert os.listdir(tmp_path / "ckpt")
+
+
+@pytest.mark.parametrize("name,backbone,mode", [
+    ("hierarchical_quadtree", "resnet18", "fusion"),
+    ("attention_hierarchical", "resnet18", "image_only"),
+    ("standard_resnet", "resnet18", "image_only"),
+    ("standard_multimodal", "vgg16", "fusion"),
+    ("standard_multimodal", "mobilenet_v2", "fusion"),
+    ("standard_multimodal", "densenet121", "image_only")])
+def test_spatial_family_on_card_matches_cpu(cuda, name, backbone, mode):
+    """The other spatial families' f32 logits on the card against the CPU
+    (64 px, the same weights), each forward one head launch."""
+    cfg = ModelConfig(name=name, backbone=backbone, mode=mode,
+                      num_classes=5, compute_dtype="float32")
+    model = get_model(cfg, image_size=64)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.random((4, 64, 64, 3)).astype(np.float32))
+    feats = torch.from_numpy(rng.normal(size=(4, 47)).astype(np.float32))
+    with torch.no_grad():
+        want = model(images, feats)
+        model = model.to(cuda)
+        before = thead.launches
+        got = model(images.to(cuda), feats.to(cuda))
+    assert thead.launches == before + 1
+    assert _rel_err(got.cpu(), want) <= 1e-4
+
+
+@pytest.mark.parametrize("name,target", [("quadtree", "layer3"),
+                                         ("hierarchical_quadtree", "level2")])
+def test_grad_cam_on_card_matches_cpu_from_the_same_activation(cuda, name,
+                                                               target):
+    """Grad-CAM's tail (kernels in their training forms, autograd, the
+    quadrant merges) on the card against the CPU from the card's own
+    target activation: heatmaps to 2e-4, preds equal."""
+    from surya_tpu_torch.interpret.gradcam import (
+        cam_from,
+        cam_model,
+        cam_split,
+    )
+
+    cfg = ModelConfig(name=name, num_classes=5)
+    state = get_model(cfg, image_size=64).state_dict()
+    rng = np.random.default_rng(1)
+    images = torch.from_numpy(rng.normal(size=(2, 64, 64, 3)).astype(
+        np.float32))
+    feats = torch.from_numpy(rng.normal(size=(2, 47)).astype(np.float32))
+    card, cpu = (cam_model(cfg, state, 64, d) for d in (cuda, "cpu"))
+    act, consts, merges = cam_split(cfg, card, images.to(cuda), target)
+    cam_g, pred_g, _ = cam_from(cfg, card, act, consts, merges,
+                                feats.to(cuda), target)
+    cam_c, pred_c, _ = cam_from(cfg, cpu, act.cpu(),
+                                {k: v.cpu() for k, v in consts.items()},
+                                merges, feats, target)
+    assert (cam_g.cpu() - cam_c).abs().max().item() <= 2e-4
+    assert torch.equal(pred_g.cpu(), pred_c)
