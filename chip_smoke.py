@@ -4,9 +4,10 @@
 
 Builds the hand-written CUDA kernels from ``surya_tpu_torch/csrc`` and
 holds each kernel, in its inference and its training form (outputs and
-gradients), against its plain PyTorch version on the card. Then it drives
-four paths, with every kernel's launch count set to 0 just before and
-read just after (the loop's in the CLI processes that run it):
+gradients), against its plain PyTorch version on the card (the head at the
+temporal widths too). Then it drives its paths, with every kernel's launch
+count set to 0 just before and read just after (the loop's in the CLI
+processes that run it):
 
 - **serve**: the flagship ``quadtree-fusion`` model (resnet18 trunk,
   224 px, 8 classes, random weights from seed 0, bf16 weights, uint8 wire,
@@ -40,6 +41,16 @@ read just after (the loop's in the CLI processes that run it):
   ``eval`` for ``comparative-mobilenet-v2`` and for ``quadtree-fusion
   --model.name=hierarchical_quadtree``; and the head kernel timed at the
   two new edge widths (D 25,344 and D 128 → H 1024).
+- **temporal**: ``cnn-lstm``, ``ji-3dcnn`` and ``quadtree-3d`` (fusion and
+  image_only) at 224 px, 8 classes, 47 features, each preset's own T (4,
+  5), random weights from seed 0: f32 logits on the card against the CPU,
+  bf16 ``Predictor.predict`` clips/s at the preset batch (uint8 wire) and
+  5 bf16 train steps at the preset batch, the head's launches counted
+  exactly; one temporal ``.npz`` request to ``/predict``; the temporal
+  replay set (``make_replay_temporal``) written as ``.npz`` windows,
+  ``pack --sequences`` at T = 5 and 4, the CLI's ``train`` (2 epochs) and
+  ``eval`` for ``quadtree-3d`` and ``cnn-lstm``; the head kernel timed at
+  the four temporal widths in both forms.
 
 It times kernels, serving and the train step with CUDA events; each
 main-path kernel in turns with its library yardstick, after the same L2
@@ -98,6 +109,12 @@ SPATIAL_HEAD_SHAPES = [(16, 25344, 512, 8), (64, 2176, 1024, 8),
                        (64, 1536, 512, 8), (16, 1280, 512, 8),
                        (16, 5120, 2560, 8), (16, 256, 128, 8)]
 HEAD_SHAPES += SPATIAL_HEAD_SHAPES
+# the temporal families' heads at their preset batches (temporal phase):
+# cnn-lstm (D 256 → 128, B 32), ji-3dcnn (192 → 128, B 8), quadtree-3d in
+# fusion (1536 → 768) and image_only (1024 → 512) mode, B 8
+TEMPORAL_HEAD_SHAPES = [(32, 256, 128, 8), (8, 192, 128, 8),
+                        (8, 1536, 768, 8), (8, 1024, 512, 8)]
+HEAD_SHAPES += TEMPORAL_HEAD_SHAPES
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max |kernel - plain| / max |plain|
 
 
@@ -559,7 +576,8 @@ QUADRANT_TRAIN_SHAPES = [(16, 14, 256, 128), (3, 28, 32, 16), (2, 6, 4, 2),
 HEAD_TRAIN_SHAPES = [(64, 256, 512, 8), (8, 64, 32, 8), (70, 264, 40, 5),
                      (1, 5376, 2688, 8), (100, 264, 40, 3),
                      (257, 512, 2688, 8), (16, 25344, 512, 8),
-                     (16, 128, 1024, 8), (TRAIN_BATCH, 5376, 2688, 8)]
+                     (16, 128, 1024, 8), *TEMPORAL_HEAD_SHAPES,
+                     (TRAIN_BATCH, 5376, 2688, 8)]
 # relL2 of a gradient against autograd through the plain version in f32 on
 # the same rounded inputs. f32: both sides sum the same products in another
 # order. bf16: the kernel path rounds cotangents and gradients to bf16.
@@ -1780,6 +1798,329 @@ def spatial_phase(quadrant, fusion_head, card):
     return totals, timed
 
 
+# ---------------------------------------------------------------------------
+# the temporal families: models, serving, train steps, CLI, HTTP
+# ---------------------------------------------------------------------------
+
+# (label, preset, overrides): the temporal configurations at 224 px
+TEMPORAL_CONFIGS = [
+    ("cnn-lstm", "cnn-lstm", {}),
+    ("ji-3dcnn", "ji-3dcnn", {}),
+    ("quadtree-3d", "quadtree-3d", {}),
+    ("quadtree-3d-image-only", "quadtree-3d", {"model.mode": "image_only"}),
+]
+TEMPORAL_STEPS, TEMPORAL_SERVE_CHUNKS = 5, 4
+# the CLI's temporal replay windows per class (make_replay_disk.py's
+# layout and seeds 2000-2002, 224 px, T = 5), and the packs trained from
+TEMPORAL_WINDOWS = {"train": 8, "valid": 4, "test": 4}
+TEMPORAL_CLI = [("quadtree-3d", 5), ("cnn-lstm", 4)]
+REPLAY_CLASSES = [f"pose_{i}" for i in range(8)]
+
+
+def clip_batch(cfg, n, seed=0, raw=True):
+    """``n`` clips at the preset's T and size with their feature sequences:
+    uint8 pixels (``raw``) or normalised-scale f32 values, and labels."""
+    t, size = cfg.data.seq_len, cfg.data.image_size
+    rng = np.random.default_rng(seed)
+    clips = (rng.integers(0, 256, (n, t, size, size, 3), dtype=np.uint8)
+             if raw else rng.normal(size=(n, t, size, size, 3)).astype(
+                 np.float32))
+    return (clips,
+            rng.normal(size=(n, t, cfg.model.num_features)).astype(
+                np.float32),
+            rng.integers(0, cfg.model.num_classes, n).astype(np.int64))
+
+
+def temporal_model(label, cfg, quadrant, fusion_head, card):
+    """One temporal configuration at 224 px, its own T, random weights from
+    seed 0: f32 logits on the card against the CPU (B = 2), bf16
+    ``Predictor.predict`` clips/s at the preset batch (uint8 wire, 3 runs of
+    4 chunks), 5 bf16 train steps at the preset batch with the preset's
+    dropout, and the head's launches in each, counted exactly; for the
+    frozen ``cnn-lstm`` trunk, its BN statistics unchanged by the steps."""
+    from surya_tpu_torch.infer.serve import Predictor
+    from surya_tpu_torch.models import get_model
+    from surya_tpu_torch.train import create_train_state, make_train_step
+
+    bs = cfg.data.batch_size
+    f32 = dataclasses.replace(cfg.model, compute_dtype="float32")
+    base = get_model(f32, seed=0)
+    state = base.state_dict()
+    head = [base.classifier.fc1.in_features, base.classifier.fc1.out_features]
+    clips, feats, _ = clip_batch(cfg, TEMPORAL_SERVE_CHUNKS * bs)
+
+    x = torch.from_numpy(clips[:2]).float() / 255.0
+    f = torch.from_numpy(feats[:2])
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = base(x, f)
+        cpu_s = time.perf_counter() - t0
+        gpu = copy.deepcopy(base).cuda()
+        if hasattr(gpu, "trunk"):
+            gpu.trunk.to(memory_format=torch.channels_last)
+        reset_launches(quadrant, fusion_head)
+        got = gpu(x.cuda(), f.cuda())
+        torch.cuda.synchronize()
+    f32_launches = read_launches(quadrant, fusion_head)
+    del gpu, base
+    err, rel = compare(got.cpu(), want)
+    assert rel <= TOL["float32"] and bool(torch.isfinite(got).all()), (
+        label, err, rel)
+    assert f32_launches == {"quadrant": 0, "quadrant_train": 0,
+                            "fusion_head": 1, "fusion_head_train": 0}, (
+        label, f32_launches)
+
+    predictor = Predictor(cfg.model, state, batch_size=bs,
+                          param_dtype=torch.bfloat16, input_dtype="uint8")
+    predictor.predict(clips[:bs], feats[:bs])              # warm-up
+    reset_launches(quadrant, fusion_head)
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        preds, probs = predictor.predict(clips, feats)
+        rates.append(len(clips) / (time.perf_counter() - t0))
+    serve_launches = read_launches(quadrant, fusion_head)
+    assert preds.shape == (len(clips),) and np.isfinite(probs).all()
+    assert serve_launches == {
+        "quadrant": 0, "quadrant_train": 0,
+        "fusion_head": 3 * TEMPORAL_SERVE_CHUNKS, "fusion_head_train": 0}, (
+        label, serve_launches)
+
+    model = get_model(cfg.model, seed=0)
+    model.load_state_dict(state, strict=True)
+    dropout = model.classifier.dropout
+    assert dropout == (0.6 if cfg.model.name == "quadtree_3d" else 0.5)
+    train_state, tx = create_train_state(model, cfg)
+    step = make_train_step(model, tx, cfg)
+    batch = tuple(torch.from_numpy(a).cuda()
+                  for a in clip_batch(cfg, bs, seed=1, raw=False))
+    trunk = {k: v.clone() for k, v in model.state_dict().items()
+             if k.startswith("trunk.") and "running_" in k}
+    reset_launches(quadrant, fusion_head)
+    losses, ms = [], []
+    for _ in range(TEMPORAL_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        train_state, metrics = step(train_state, batch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    train_launches = read_launches(quadrant, fusion_head)
+    assert np.isfinite(losses).all(), (label, losses)
+    assert train_launches == {
+        "quadrant": 0, "quadrant_train": 0, "fusion_head": 0,
+        "fusion_head_train": TEMPORAL_STEPS}, (label, train_launches)
+    after = model.state_dict()
+    frozen_bn_kept = all(torch.equal(v, after[k]) for k, v in trunk.items())
+    assert frozen_bn_kept, label          # empty (True) without a trunk
+    row = {"phase": "temporal", "model": label, "family": cfg.model.name,
+           "mode": cfg.model.mode, "seq_len": cfg.data.seq_len,
+           "image_size": cfg.data.image_size, "head_d_h": head,
+           "freeze_backbone": cfg.model.freeze_backbone,
+           "frozen_trunk_bn_stats": len(trunk),
+           "f32_card_vs_cpu": {"batch": 2, "max_abs_err": err,
+                               "max_rel_err": rel, "tol": TOL["float32"],
+                               "cpu_forward_s": cpu_s},
+           "serve": {"batch_size": bs, "clips": len(clips), "runs": 3,
+                     "clips_per_s": rates,
+                     "clips_per_s_median": statistics.median(rates)},
+           "train": {"batch": bs, "dtype": "bfloat16", "dropout": dropout,
+                     "losses": losses, "step_ms": ms,
+                     "step_ms_median": statistics.median(ms)},
+           "launches": {"f32_forward": f32_launches, "serve": serve_launches,
+                        "train": train_launches}, **card}
+    emit(row)
+    del model, train_state, tx, step, batch
+    torch.cuda.empty_cache()
+    return predictor, clips, feats, row
+
+
+def temporal_http(predictor, clips, feats, quadrant, fusion_head, card):
+    """One temporal ``.npz`` request (3 clips) to ``/predict`` of a
+    ``PredictionServer`` around ``predictor``: the reply's predictions are
+    those of ``predictor.predict`` on the same clips, one head launch."""
+    from surya_tpu_torch.infer.http_server import PredictionServer
+
+    server = PredictionServer(predictor, REPLAY_CLASSES)
+    httpd = server.make_server("127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        health = http_json(url + "/healthz")
+        reset_launches(quadrant, fusion_head)
+        t0 = time.perf_counter()
+        reply = http_json(url + "/predict", npz_bytes(clips[:3], feats[:3]))
+        latency = time.perf_counter() - t0
+        launches = read_launches(quadrant, fusion_head)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+    preds, probs = predictor.predict(clips[:3], feats[:3])
+    assert health["status"] == "ok" and reply["n"] == 3, reply
+    assert reply["predictions"] == preds.tolist(), (reply, preds)
+    assert reply["labels"] == [REPLAY_CLASSES[i] for i in preds]
+    err = float(np.abs(np.asarray(reply["probabilities"]) - probs).max())
+    assert err <= 1e-5, err
+    assert launches == {"quadrant": 0, "quadrant_train": 0,
+                        "fusion_head": 1, "fusion_head_train": 0}, launches
+    row = {"phase": "temporal_http", "model": health["model"],
+           "clips": 3, "request_s": latency, "max_abs_prob_err": err,
+           "launches": launches, **card}
+    emit(row)
+    return launches
+
+
+def temporal_cli(card):
+    """The temporal replay set (``make_replay_temporal``, 8/4/4 windows
+    per class, 224 px, T = 5) written as ``.npz`` windows in
+    ``scripts/make_replay_disk.py``'s layout; ``pack --sequences`` at
+    T = 5 and T = 4; ``train`` for 2 epochs with ``--preset quadtree-3d``
+    and with ``--preset cnn-lstm`` from those packs, then ``eval`` of each
+    best checkpoint: finite losses, eval = the loop's test loss, and each
+    child's head launches counted exactly."""
+    import shutil
+    import tempfile
+
+    from surya_tpu_torch.core.config import get_preset
+    from surya_tpu_torch.data.replay import make_replay_temporal
+    from surya_tpu_torch.data.sequences import write_windows
+
+    root = tempfile.mkdtemp(prefix="surya_temporal_")
+    rows = []
+    totals = dict.fromkeys(("quadrant", "quadrant_train", "fusion_head",
+                            "fusion_head_train", "channel_stats",
+                            "affine_relu"), 0)
+    try:
+        windows = os.path.join(root, "windows")
+        t0 = time.perf_counter()
+        write_windows(windows, {
+            split: make_replay_temporal(per_class=n, image_size=224,
+                                        seq_len=5, seed=2000 + i)
+            for i, (split, n) in enumerate(TEMPORAL_WINDOWS.items())},
+            REPLAY_CLASSES)
+        write_s = time.perf_counter() - t0
+        count = {s: 8 * n for s, n in TEMPORAL_WINDOWS.items()}
+        for preset, t in TEMPORAL_CLI:
+            pack = os.path.join(root, f"pack{t}")
+            t0 = time.perf_counter()
+            _, meta = run_cli(["pack", "--sequences", "--root", windows,
+                               "--out", pack, "--seq-len", str(t)])
+            pack_s = time.perf_counter() - t0
+            assert meta["kind"] == "sequences", meta
+            assert {s: v["count"] for s, v in meta["splits"].items()} == count
+            bs = get_preset(preset).data.batch_size
+            steps = count["train"] // bs
+            evals = -(-count["valid"] // bs), -(-count["test"] // bs)
+            flags = ["--preset", preset, f"--data.packed_dir={pack}",
+                     f"--data.seq_root={windows}"]
+            run = os.path.join(root, f"run_{preset}")
+            t0 = time.perf_counter()
+            _, summary = run_cli(["train", *flags, "--out", run,
+                                  "--train.epochs=2"])
+            train_s = time.perf_counter() - t0
+            epochs = epoch_records(run)
+            want = {"training": 2 * steps,
+                    "inference": 2 * evals[0] + evals[1]}
+            launches = summary["kernel_launches"]
+            assert launches["fusion_head"] == want, (preset, launches)
+            assert launches["quadrant"] == {"training": 0, "inference": 0}
+            assert [r["steps"] for r in epochs] == [steps, steps], epochs
+            assert all(np.isfinite(r["train_loss"]) for r in epochs), epochs
+            assert np.isfinite(summary["test"]["loss"]), summary
+            assert summary["test"]["count"] == count["test"], summary
+            best = os.path.join(run, "ckpt", f"{summary['best_epoch']}.pt")
+            _, ev = run_cli(["eval", best, *flags])
+            assert ev["kernel_launches"]["fusion_head"] == {
+                "training": 0, "inference": evals[1]}, ev["kernel_launches"]
+            assert ev["count"] == summary["test"]["count"]
+            assert abs(ev["loss"] - summary["test"]["loss"]) <= 1e-5 * max(
+                1.0, abs(summary["test"]["loss"])), (ev, summary["test"])
+            for out in (launches, ev["kernel_launches"]):
+                for k in ("quadrant", "fusion_head"):
+                    totals[k] += out[k]["inference"]
+                    totals[k + "_train"] += out[k]["training"]
+                totals["channel_stats"] += out["channel_stats"]
+                totals["affine_relu"] += out["affine_relu"]
+            rows.append({"preset": preset, "seq_len": t, "batch": bs,
+                         "pack_cli_s": pack_s, "train_cli_s": train_s,
+                         "train_loss": [r["train_loss"] for r in epochs],
+                         "val_loss": [r["val_loss"] for r in epochs],
+                         "clips_per_sec": [r["images_per_sec"]
+                                           for r in epochs],
+                         "epoch_time_s": [r["epoch_time_s"] for r in epochs],
+                         "test_loss": summary["test"]["loss"],
+                         "test_accuracy": summary["test"]["accuracy"],
+                         "eval_loss": ev["loss"], "launches": launches,
+                         "eval_launches": ev["kernel_launches"]})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "temporal_cli", "windows": count, "write_s": write_s,
+          "runs": rows, **card})
+    return totals
+
+
+def temporal_phase(quadrant, fusion_head, stem_bn, card):
+    """Every temporal configuration (:data:`TEMPORAL_CONFIGS`), one temporal
+    request over HTTP, the CLI on the temporal replay set, and the head
+    kernel timed at the four temporal widths in both forms. → (launches of
+    the whole phase per kernel form, timed rows)."""
+    from surya_tpu_torch.core.config import get_preset
+
+    t0 = time.perf_counter()
+    for k in stem_bn.launches:
+        stem_bn.launches[k] = 0
+    totals = dict.fromkeys(("quadrant", "quadrant_train", "fusion_head",
+                            "fusion_head_train"), 0)
+    summary = []
+    http = None
+    for label, preset, overrides in TEMPORAL_CONFIGS:
+        cfg = get_preset(preset).override(overrides)
+        predictor, clips, feats, row = temporal_model(
+            label, cfg, quadrant, fusion_head, card)
+        for part in row["launches"].values():
+            for k, v in part.items():
+                totals[k] += v
+        summary.append({"model": label, "head_d_h": row["head_d_h"],
+                        "f32_max_rel_err": row["f32_card_vs_cpu"][
+                            "max_rel_err"],
+                        "serve_clips_per_s": row["serve"][
+                            "clips_per_s_median"],
+                        "train_step_ms": row["train"]["step_ms_median"]})
+        if label == "quadtree-3d":
+            http = temporal_http(predictor, clips, feats, quadrant,
+                                 fusion_head, card)
+            for k, v in http.items():
+                totals[k] += v
+        del predictor, clips, feats
+        torch.cuda.empty_cache()
+    assert http is not None
+    totals.update(stem_bn.launches)
+    for k, v in temporal_cli(card).items():
+        totals[k] += v
+    assert totals["quadrant"] == totals["quadrant_train"] == 0, totals
+    assert totals["channel_stats"] == totals["affine_relu"] == 0, totals
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    timed = {}
+    for shape in TEMPORAL_HEAD_SHAPES:
+        for train in (False, True):
+            name = "fusion_head_train" if train else "fusion_head"
+            row = head_timed(fusion_head, shape, flush, train)
+            timed[(name, shape)] = row
+            emit({"phase": "time", "kernel": name, "dtype": "bfloat16",
+                  "clocks_after": clocks(), "shape": list(shape), **row,
+                  **card})
+    del flush
+    emit({"phase": "temporal_summary", "models": summary, "launches": totals,
+          "seconds": time.perf_counter() - t0, **card})
+    return totals, timed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1824,6 +2165,13 @@ def main() -> int:
     if min(spatial_launches.values()) < 1:
         raise AssertionError(f"a kernel form was never launched on the "
                              f"spatial path: {spatial_launches}")
+    torch.cuda.empty_cache()
+    temporal_launches, _ = temporal_phase(quadrant, fusion_head, stem_bn,
+                                          card)
+    if min(temporal_launches["fusion_head"],
+           temporal_launches["fusion_head_train"]) < 1:
+        raise AssertionError(f"a head form was never launched on the "
+                             f"temporal path: {temporal_launches}")
 
     # name → (source, replaces, launches on its path, max |kernel - plain|
     # at the shape that path gives it, bf16)
@@ -1847,26 +2195,33 @@ def main() -> int:
         "affine_relu": ("stem_bn", "surya_tpu/ops/pallas/stem_bn.py:71",
                         stem_launches["affine_relu"],
                         stem_times["affine_relu"])}
-    # launches on every path: serve, train, stem probe and spatial in this
-    # process, the loop's (and the spatial CLI runs') in the CLI children
+    # launches on every path: serve, train, stem probe, spatial and
+    # temporal in this process, the loop's (and the spatial and temporal
+    # CLI runs') in the CLI children
     paths = {
         "quadrant": {"serve": serve_launches["quadrant"],
                      "loop": loop_launches["quadrant"]["inference"],
-                     "spatial": spatial_launches["quadrant"]},
+                     "spatial": spatial_launches["quadrant"],
+                     "temporal": temporal_launches["quadrant"]},
         "fusion_head": {"serve": serve_launches["fusion_head"],
                         "loop": loop_launches["fusion_head"]["inference"],
-                        "spatial": spatial_launches["fusion_head"]},
+                        "spatial": spatial_launches["fusion_head"],
+                        "temporal": temporal_launches["fusion_head"]},
         "quadrant_train": {"train": train_launches["quadrant"],
                            "loop": loop_launches["quadrant"]["training"],
-                           "spatial": spatial_launches["quadrant_train"]},
+                           "spatial": spatial_launches["quadrant_train"],
+                           "temporal": temporal_launches["quadrant_train"]},
         "fusion_head_train": {
             "train": train_launches["fusion_head"],
             "loop": loop_launches["fusion_head"]["training"],
-            "spatial": spatial_launches["fusion_head_train"]},
+            "spatial": spatial_launches["fusion_head_train"],
+            "temporal": temporal_launches["fusion_head_train"]},
         "channel_stats": {"stem_probe": stem_launches["channel_stats"],
-                          "loop": loop_launches["channel_stats"]},
+                          "loop": loop_launches["channel_stats"],
+                          "temporal": temporal_launches["channel_stats"]},
         "affine_relu": {"stem_probe": stem_launches["affine_relu"],
-                        "loop": loop_launches["affine_relu"]}}
+                        "loop": loop_launches["affine_relu"],
+                        "temporal": temporal_launches["affine_relu"]}}
     kernels = []
     for kname, (source, replaces, launches, check) in table.items():
         if launches < 1:

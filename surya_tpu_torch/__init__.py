@@ -9,10 +9,12 @@ JAX package so each counterpart is easy to find:
                  CUDA kernels that replace the Pallas TPU kernels
 - ``models``   — backbones (ResNet with the s2d stem and folded BN, VGG16,
                  MobileNetV2, DenseNet121), heads, the spatial families
-                 (quadtree, hierarchical, attention, standard), losses,
-                 registry, JAX weight import
-- ``data``     — host batches (in-memory, disk, packed), the device-side
-                 augmentation and imputation
+                 (quadtree, hierarchical, attention, standard), the first
+                 temporal families (CNN+LSTM, Ji3DCNN, Quadtree3DCNN),
+                 losses, registry, JAX weight import
+- ``data``     — host batches (in-memory, disk, packed; sequence windows
+                 and sequence packs), the device-side augmentation and
+                 imputation, the replay generators
 - ``native``   — the ctypes JPEG batch decoder (host side)
 - ``train``    — the train and eval steps (AdamW, clip, freeze, NaN guard),
                  the epoch loop with checkpoints and resume, comparison

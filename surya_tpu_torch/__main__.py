@@ -8,6 +8,7 @@
   python -m surya_tpu_torch eval CKPT [--preset P] [--split test] [--synthetic]
   python -m surya_tpu_torch compare NAME=CKPT:PRESET ... [--split valid] [--out DIR]
   python -m surya_tpu_torch pack --root DATA --out DIR [--staging 256]
+  python -m surya_tpu_torch pack --sequences --root SEQ --out DIR [--seq-len 5]
   python -m surya_tpu_torch serve CKPT [--preset P] [--port 8577] [--classes names.json]
   python -m surya_tpu_torch cam CKPT [--preset P] [--target layer4] [--out DIR] [--limit N]
 
@@ -26,37 +27,54 @@ import sys
 
 
 def _build_data(cfg, device):
-    """Pick the data source: synthetic, packed or disk (spatial models;
-    the temporal sources are ROADMAP A9). Batches bound for a card are
-    pinned in the source's producer thread."""
+    """Pick the data source: synthetic, sequence (temporal models: packed
+    or the ``.npz`` windows) or disk/packed (spatial models). Batches bound
+    for a card are pinned by the source."""
     from surya_tpu_torch.models.registry import TEMPORAL_MODELS
 
-    if cfg.model.name in TEMPORAL_MODELS:
-        raise NotImplementedError(
-            f"model {cfg.model.name!r} needs the sequence data sources: "
-            "ROADMAP A9 (temporal families)")
+    temporal = cfg.model.name in TEMPORAL_MODELS
+    pin = device.type == "cuda"
     if cfg.data.synthetic:
         from surya_tpu_torch.data import (
             ArrayDataSource,
             make_synthetic_spatial,
+            make_synthetic_temporal,
         )
 
-        splits = {s: make_synthetic_spatial(
-                      num_classes=cfg.model.num_classes,
-                      per_class=max(cfg.data.synthetic_size
-                                    // cfg.model.num_classes, 2),
-                      image_size=cfg.data.image_size, seed=i)
+        gen = make_synthetic_temporal if temporal else make_synthetic_spatial
+        kw = dict(num_classes=cfg.model.num_classes,
+                  image_size=cfg.data.image_size)
+        if temporal:
+            kw["seq_len"] = cfg.data.seq_len
+        splits = {s: gen(per_class=max(cfg.data.synthetic_size
+                                       // cfg.model.num_classes, 2),
+                         seed=i, **kw)
                   for i, s in enumerate(("train", "valid", "test"))}
         return ArrayDataSource(splits, cfg.data.batch_size)
+    if temporal:
+        if cfg.data.seq_len != cfg.model.seq_len:
+            raise ValueError(
+                f"data.seq_len={cfg.data.seq_len} != "
+                f"model.seq_len={cfg.model.seq_len}; override both "
+                "together (the model's temporal embedding is sized to "
+                "its seq_len)")
+        if cfg.data.packed_dir:
+            from surya_tpu_torch.data.packed import PackedSequenceSource
+
+            return PackedSequenceSource(cfg.data, seed=cfg.train.seed,
+                                        pin_memory=pin)
+        from surya_tpu_torch.data.sequences import SequenceDataSource
+
+        return SequenceDataSource(cfg.data, seed=cfg.train.seed,
+                                  pin_memory=pin)
     if cfg.data.packed_dir:
         from surya_tpu_torch.data.packed import PackedDataSource
 
         return PackedDataSource(cfg.data, seed=cfg.train.seed,
-                                pin_memory=device.type == "cuda")
+                                pin_memory=pin)
     from surya_tpu_torch.data.dataset import DiskDataSource
 
-    return DiskDataSource(cfg.data, seed=cfg.train.seed,
-                          pin_memory=device.type == "cuda")
+    return DiskDataSource(cfg.data, seed=cfg.train.seed, pin_memory=pin)
 
 
 def _config(args, rest):
@@ -243,7 +261,8 @@ def cmd_cam(argv: list[str]) -> int:
 def cmd_pack(argv: list[str]) -> int:
     """Build the packed pre-decoded dataset cache (``data/packed.py``):
     one offline decode pass, then decode-free epochs through
-    ``--data.packed_dir``."""
+    ``--data.packed_dir``; with ``--sequences``, the sequence pack of a
+    windowed ``.npz`` dataset at ``--seq-len``."""
     import argparse
 
     from surya_tpu_torch.data.packed import pack_dataset, pack_sequences
@@ -255,7 +274,8 @@ def cmd_pack(argv: list[str]) -> int:
                     help="decoded side length (DiskDataSource staging)")
     ap.add_argument("--sequences", action="store_true",
                     help="pack a windowed .npz sequence dataset "
-                         "(ROADMAP A9)")
+                         "(--root = seq_root) instead of the flat "
+                         "image layout")
     ap.add_argument("--seq-len", type=int, default=4)
     ap.add_argument("--overwrite", action="store_true")
     args = ap.parse_args(argv)

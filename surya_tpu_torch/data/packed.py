@@ -11,6 +11,11 @@ decode once, then serve batches at memcpy speed.
 - :class:`PackedDataSource` serves batches from those memmaps as a
   drop-in ``DiskDataSource``: a fancy-indexed read per batch, no decode,
   and the device-side augment and imputation unchanged.
+- :func:`pack_sequences` packs the windowed ``.npz`` sequence dataset
+  (``data/sequences.py``) the same way, each window padded or truncated
+  to ``seq_len`` as the live loader does, into (N,T,H,W,3) memmaps; and
+  :class:`PackedSequenceSource` serves them as a drop-in
+  ``SequenceDataSource``.
 
 The layout and the metadata format (version 1) are the JAX package's, so
 a pack written by either package is read by the other.
@@ -25,6 +30,7 @@ import shutil
 import numpy as np
 
 from surya_tpu_torch.core.config import DataConfig
+from surya_tpu_torch.data.batching import epoch_order, pad_eval_iter
 from surya_tpu_torch.data.dataset import (
     STATS_FILES,
     DiskDataSource,
@@ -70,17 +76,21 @@ def _write_meta(out_dir: str, meta: dict) -> None:
         json.dump(meta, f, indent=1)
 
 
-def _write_split(out_dir: str, meta: dict, split: str, labels,
-                 chunks) -> None:
+def _write_split(out_dir: str, meta: dict, split: str, labels, chunks,
+                 sample_shape: tuple | None = None) -> None:
     """Write one split from ``chunks``, an iterable of (uint8 images
-    (k,S,S,3), features (k,47)) in sample order, then record it in the
-    metadata (written per split, so a pack can resume mid-way)."""
+    (k, *sample_shape), features (k, ..., 47)) in sample order, then
+    record it in the metadata (written per split, so a pack can resume
+    mid-way). ``sample_shape`` is one image's, (S,S,3) at the staging size
+    by default; a sequence pack's is (T,H,W,3), with (T,47) features."""
     files = split_paths(out_dir, split)
-    n, staging = len(labels), meta["staging"]
+    n = len(labels)
+    if sample_shape is None:
+        sample_shape = (meta["staging"], meta["staging"], 3)
     images = np.lib.format.open_memmap(
         files["images"], mode="w+", dtype=np.uint8,
-        shape=(n, staging, staging, 3))
-    feats = np.empty((n, 47), np.float32)
+        shape=(n, *sample_shape))
+    feats = np.empty((n, *sample_shape[:-3], 47), np.float32)
     start = 0
     for imgs, f in chunks:
         images[start:start + len(imgs)] = imgs
@@ -205,7 +215,7 @@ class PackedDataSource(DiskDataSource):
             meta = json.load(f)
         if meta.get("kind", "flat") != "flat":
             raise ValueError(f"{pdir} is a {meta['kind']} pack; "
-                             "sequence packs wait for ROADMAP A9")
+                             "use PackedSequenceSource")
         _check_source_root(meta, cfg.data_root, pdir)
 
         self.cfg = cfg
@@ -239,14 +249,144 @@ class PackedDataSource(DiskDataSource):
         return imgs, self._feats[split][idx], self.index[split][2][idx]
 
 
-def pack_sequences(*args, **kwargs):
-    raise NotImplementedError(
-        "sequence packs need data/sequences.py: ROADMAP A9 (temporal "
-        "families)")
+# --- sequence (temporal) pack ------------------------------------------------
+
+def pack_sequences(seq_root: str, out_dir: str, seq_len: int = 4,
+                   splits=("train", "valid", "test"),
+                   overwrite: bool = False, verbose: bool = True) -> dict:
+    """Pack the windowed ``.npz`` sequence dataset into memmap arrays: a
+    window's zlib decompression becomes one fancy-indexed read of a
+    (N, T, H, W, 3) uint8 memmap. Windows are padded or truncated to
+    ``seq_len`` with the live loader's rule, so packed batches are
+    byte-identical to ``SequenceDataSource``'s. Returns the metadata."""
+    from surya_tpu_torch.data.sequences import SequenceDataSource
+
+    src = SequenceDataSource(DataConfig(seq_root=seq_root, seq_len=seq_len),
+                             splits=splits)
+    os.makedirs(out_dir, exist_ok=True)
+
+    meta_path = os.path.join(out_dir, META_NAME)
+    meta = {"format_version": FORMAT_VERSION, "kind": "sequences",
+            "seq_len": seq_len, "source_root": os.path.abspath(seq_root),
+            "class_names": list(src.class_names), "splits": {}}
+    if os.path.exists(meta_path) and not overwrite:
+        with open(meta_path) as f:
+            old = json.load(f)
+        if (old.get("kind") != "sequences"
+                or old.get("seq_len") != seq_len
+                or old.get("class_names") != meta["class_names"]):
+            raise ValueError(
+                f"{out_dir} holds a {old.get('kind', 'flat')} pack "
+                f"(seq_len={old.get('seq_len')}); requested sequences "
+                f"seq_len={seq_len}. Pass overwrite=True or a fresh "
+                f"out_dir.")
+        meta["splits"] = old.get("splits", {})
+
+    for split, files in src.index.items():
+        n = len(files)
+        done = meta["splits"].get(split)
+        if (done and done.get("count") == n and not overwrite
+                and all(os.path.exists(p)
+                        for p in split_paths(out_dir, split).values())):
+            if verbose:
+                print(f"[pack] {split}: {n} windows already packed, "
+                      "skipping")
+            continue
+        if verbose:
+            print(f"[pack] {split}: packing {n} windows (T={seq_len})")
+        shape = src._load(files[0])[0].shape if n else (seq_len, 1, 1, 3)
+        labels = np.empty((n,), np.int32)
+
+        def chunks():
+            for i, path in enumerate(files):
+                imgs, feats, labels[i] = src._load(path)
+                yield imgs[None], feats[None]
+
+        _write_split(out_dir, meta, split, labels, chunks(), shape)
+
+    for name in ("class_to_idx.json",) + STATS_FILES:
+        s = os.path.join(seq_root, name)
+        if os.path.exists(s):
+            shutil.copy2(s, os.path.join(out_dir, name))
+    _write_meta(out_dir, meta)
+    return meta
 
 
 class PackedSequenceSource:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "sequence packs need data/sequences.py: ROADMAP A9 (temporal "
-            "families)")
+    """``SequenceDataSource`` drop-in over the packed sequence memmaps: the
+    same batches, epoch order, eval padding and device transform (the
+    shared helpers of ``data/batching.py`` and
+    ``sequence_device_transform``)."""
+
+    def __init__(self, cfg: DataConfig, packed_dir: str | None = None,
+                 stats: ClassFeatureStats | None = None, seed: int = 0,
+                 pad_eval_to: int = 1, build: bool = True,
+                 pin_memory: bool = False):
+        pdir = packed_dir or cfg.packed_dir
+        if not pdir:
+            raise ValueError("PackedSequenceSource needs packed_dir "
+                             "(or data.packed_dir in the config)")
+        meta_path = os.path.join(pdir, META_NAME)
+        if not os.path.exists(meta_path):
+            if not build:
+                raise FileNotFoundError(meta_path)
+            pack_sequences(cfg.seq_root, pdir, seq_len=cfg.seq_len)
+        with open(meta_path) as f:
+            meta = json.load(f)
+        if meta.get("kind") != "sequences":
+            raise ValueError(f"{pdir} is a {meta.get('kind', 'flat')} "
+                             "pack; use PackedDataSource")
+        if meta["seq_len"] != cfg.seq_len:
+            raise ValueError(
+                f"pack was built with seq_len={meta['seq_len']}, config "
+                f"wants {cfg.seq_len}; repack or fix data.seq_len")
+        _check_source_root(meta, cfg.seq_root, pdir)
+
+        self.cfg = cfg
+        self.seed = seed
+        self.pad_eval_to = pad_eval_to
+        self.pin_memory = pin_memory
+        self.packed_dir = pdir
+        self.class_names = list(meta["class_names"])
+        self.num_classes = len(self.class_names)
+        if stats is not None:
+            self.stats = stats.aligned_to(self.class_names)
+        else:
+            self.stats = (load_stats(pdir, self.class_names)
+                          if cfg.standardize_features else None)
+
+        self._images, self._feats, self._labels = {}, {}, {}
+        for split in meta["splits"]:
+            files = split_paths(pdir, split)
+            self._images[split] = np.load(files["images"], mmap_mode="r")
+            self._feats[split] = np.load(files["features"])
+            self._labels[split] = np.load(files["labels"])
+        if "train" not in self._images:
+            raise FileNotFoundError(f"no packed train split under {pdir}")
+
+    def _batches(self, split: str, order):
+        from surya_tpu_torch.data.sequences import pinned
+
+        bs = self.cfg.batch_size
+        for i in range(0, len(order), bs):
+            idx = order[i:i + bs]
+            batch = (self._images[split][idx], self._feats[split][idx],
+                     self._labels[split][idx])
+            yield pinned(batch) if self.pin_memory else batch
+
+    def train_batches(self, epoch_seed: int = 0):
+        n = len(self._labels["train"])
+        order = epoch_order(n, self.cfg.batch_size, self.seed, epoch_seed)
+        return self._batches("train", order)
+
+    def eval_batches(self, split: str):
+        if split not in self._labels:
+            raise KeyError(split)
+        it = self._batches(split, np.arange(len(self._labels[split])))
+        return pad_eval_iter(it, self.pad_eval_to)
+
+    def device_transform(self, split: str, generator, batch):
+        from surya_tpu_torch.data.sequences import sequence_device_transform
+
+        return sequence_device_transform(self.cfg, self.stats, split,
+                                         generator, batch)

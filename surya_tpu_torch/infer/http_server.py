@@ -8,7 +8,10 @@ Endpoints
 
 Request body for /predict:
   * ``application/x-npz`` (preferred): ``np.savez`` bytes with arrays
-    ``images`` (N,H,W,3) and ``features`` (N,F). The image dtype must
+    ``images`` (N,H,W,3) and ``features`` (N,F), or, for a temporal
+    checkpoint (``--preset cnn-lstm``, ``ji-3dcnn``, ``quadtree-3d``),
+    sequences ``images`` (N,T,H,W,3) and ``features`` (N,T,F) through the
+    same wire. The image dtype must
     match the server's wire format: raw uint8 pixels with
     ``--input-dtype uint8`` (the default), [0,1] floats otherwise.
   * ``application/json``: {"images": nested lists, "features": ...} —

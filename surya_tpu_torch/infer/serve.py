@@ -3,7 +3,9 @@
 
 ``predict`` takes any number of samples, runs them in ``batch_size``
 chunks, pads the tail chunk by repeating its last row and slices the
-padding off again. The image wire format is set by ``input_dtype``:
+padding off again. A sample is an image (H,W,3) with features (F,), or,
+for a temporal model (``models.TEMPORAL_MODELS``), a clip (T,H,W,3) with
+a feature sequence (T,F). The image wire format is set by ``input_dtype``:
 ``uint8`` takes raw 0-255 pixels and divides by 255 on the device (a 4×
 smaller host→device copy), ``float32``/``bfloat16`` take [0,1] pixels.
 As in the JAX predictor no ImageNet normalisation is applied (see ROADMAP

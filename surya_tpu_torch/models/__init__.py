@@ -1,5 +1,5 @@
-"""Models: backbones, shared heads, the spatial families, losses,
-registry, JAX import."""
+"""Models: backbones, shared heads, the spatial and temporal families,
+losses, registry, JAX import."""
 
 from surya_tpu_torch.models.registry import (  # noqa: F401
     TEMPORAL_MODELS,

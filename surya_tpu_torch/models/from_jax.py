@@ -3,7 +3,8 @@
 
 The port's module names follow the flax tree, so the mapping is by leaf:
 
-- conv ``kernel`` (H, W, I, O) → ``weight`` (O, I, H, W); a depthwise
+- conv ``kernel`` (H, W, I, O) → ``weight`` (O, I, H, W), and a 3-D conv
+  ``kernel`` (D, H, W, I, O) → ``weight`` (O, I, D, H, W); a depthwise
   kernel (3, 3, 1, C) becomes the (C, 1, 3, 3) weight of a
   ``groups=C`` conv, and the biases of convs with one (VGG, the
   hierarchical levels, a folded trunk) stay ``bias``
@@ -12,6 +13,10 @@ The port's module names follow the flax tree, so the mapping is by leaf:
   ``batch_stats`` ``mean``/``var`` → ``running_mean``/``running_var``
 - ``quadrant_conv_kernel`` stays (3, 3, Cin, Cout) HWIO: the layout the
   quadrant CUDA kernel reads.
+- an LSTM layer ``OptimizedLSTMCell_{k}`` (per-gate ``i{g}`` kernels and
+  ``h{g}`` kernels with biases, g in i, f, g, o) → its ``weight_ih``
+  (4H, D), ``weight_hh`` (4H, H) and ``bias`` (4H), the gates stacked in
+  that order (``models/temporal/recurrent.py``).
 
 Inputs are numpy arrays (or anything ``np.asarray`` takes), so nothing of
 JAX is needed: :func:`load_npz_variables` rebuilds the tree from an
@@ -36,20 +41,47 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
+_TO_OUT_IN = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+_GATES = "ifgo"
+
+
+def _lstm_cell(prefix: str, cell: dict, out: dict) -> None:
+    """One flax ``OptimizedLSTMCell``'s per-gate leaves → the stacked
+    ``weight_ih``/``weight_hh``/``bias`` of the port's ``LSTMCell``."""
+    def stack(kind, leaf):   # kernels (in, H) → (H, in); .T keeps a bias
+        return np.concatenate([np.asarray(cell[f"{kind}{g}"][leaf],
+                                          np.float32).T for g in _GATES])
+
+    for name, kind, leaf in (("weight_ih", "i", "kernel"),
+                             ("weight_hh", "h", "kernel"),
+                             ("bias", "h", "bias")):
+        out[f"{prefix}.{name}"] = torch.from_numpy(
+            np.ascontiguousarray(stack(kind, leaf)))
+
+
 def from_jax_variables(variables) -> dict[str, torch.Tensor]:
     """``{"params": ..., "batch_stats": ...}`` → the port's state_dict."""
     out = {}
     for collection in ("params", "batch_stats"):
+        cells = {}
         for path, value in _flatten(variables.get(collection, {})):
-            a = np.array(value, np.float32)   # a writable copy
             *mods, leaf = path
+            cell = next((i for i, m in enumerate(mods)
+                         if m.startswith("OptimizedLSTMCell_")), None)
+            if cell is not None:   # gathered whole, stacked below
+                node = cells.setdefault(tuple(mods[:cell + 1]), {})
+                node.setdefault(mods[cell + 1], {})[leaf] = value
+                continue
+            a = np.array(value, np.float32)   # a writable copy
             if leaf == "kernel":
-                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+                a = a.transpose(_TO_OUT_IN[a.ndim])
                 name = "weight"
             else:
                 name = _LEAF.get(leaf, leaf)
             out[".".join([*mods, name])] = torch.from_numpy(
                 np.ascontiguousarray(a))
+        for mods, cell in cells.items():
+            _lstm_cell(".".join(mods), cell, out)
     return out
 
 

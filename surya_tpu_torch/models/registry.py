@@ -1,10 +1,14 @@
 """Model registry — the single ``get_model`` factory, mirroring
-``surya_tpu/models/registry.py``. Every spatial family is ported; the
-temporal families raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+``surya_tpu/models/registry.py``. Every spatial family is ported, and the
+temporal ``cnn_lstm``, ``ji_3dcnn`` and ``quadtree_3d``; the other temporal
+families raise ``NotImplementedError`` naming the ROADMAP item that ports
+them (A9b).
 
-As in JAX, ``cfg.dropout`` reaches the quadtree only: the hierarchical
-and standard families keep their reference dropout of 0.5."""
+As in JAX, ``cfg.dropout`` (None: the family's own default) reaches the
+quadtree and the three temporal families only: the hierarchical and
+standard families keep their reference dropout of 0.5. The temporal
+families' numerical inputs are sized by ``cfg.num_features`` (flax infers
+them from the data)."""
 
 from __future__ import annotations
 
@@ -18,12 +22,16 @@ TEMPORAL_MODELS = frozenset({"cnn_lstm", "ji_3dcnn", "quadtree_3d",
                              "fact"})
 
 
+def _opt(cfg: ModelConfig) -> dict:
+    """JAX's ``_opt``: the dropout override only when one is set."""
+    return {} if cfg.dropout is None else {"dropout": cfg.dropout}
+
+
 def _quadtree(cfg: ModelConfig, common: dict):
     from surya_tpu_torch.models.spatial.quadtree import QuadtreeCNN
 
-    kw = {} if cfg.dropout is None else {"dropout": cfg.dropout}
     return QuadtreeCNN(mode=cfg.mode, num_features=cfg.num_features,
-                       **common, **kw)
+                       **common, **_opt(cfg))
 
 
 def _hierarchical(cfg: ModelConfig, common: dict):
@@ -57,11 +65,42 @@ def _standard_multimodal(cfg: ModelConfig, common: dict):
                                  num_features=cfg.num_features, **common)
 
 
+def _cnn_lstm(cfg: ModelConfig, common: dict):
+    from surya_tpu_torch.models.temporal.cnn_lstm import CnnLstm
+
+    return CnnLstm(num_classes=cfg.num_classes, backbone=cfg.backbone,
+                   lstm_hidden=cfg.lstm_hidden, lstm_layers=cfg.lstm_layers,
+                   num_features=cfg.num_features, dtype=common["dtype"],
+                   freeze_backbone=cfg.freeze_backbone, **_opt(cfg))
+
+
+def _ji_3dcnn(cfg: ModelConfig, common: dict):
+    from surya_tpu_torch.models.temporal.conv3d import Ji3DCNN
+
+    return Ji3DCNN(num_classes=cfg.num_classes, dtype=common["dtype"],
+                   num_features=cfg.num_features,
+                   conv3d_as_2d=cfg.conv3d_as_2d, **_opt(cfg))
+
+
+def _quadtree_3d(cfg: ModelConfig, common: dict):
+    from surya_tpu_torch.models.temporal.conv3d import Quadtree3DCNN
+
+    return Quadtree3DCNN(num_classes=cfg.num_classes, mode=cfg.mode,
+                         dtype=common["dtype"],
+                         num_features=cfg.num_features,
+                         conv3d_as_2d=cfg.conv3d_as_2d, **_opt(cfg))
+
+
+# temporal families of the JAX registry still to port
+_NOT_PORTED = frozenset({"resnet3d_video", "hybrid_quadtree_3d", "fact"})
+
 _REGISTRY = {"quadtree": _quadtree,
              "hierarchical_quadtree": _hierarchical,
              "attention_hierarchical": _attention,
              "standard_resnet": _standard_resnet,
-             "standard_multimodal": _standard_multimodal}
+             "standard_multimodal": _standard_multimodal,
+             "cnn_lstm": _cnn_lstm, "ji_3dcnn": _ji_3dcnn,
+             "quadtree_3d": _quadtree_3d}
 
 
 def list_models() -> list[str]:
@@ -72,10 +111,10 @@ def get_model(cfg: ModelConfig, image_size: int = 224,
               seed: int = 0) -> torch.nn.Module:
     """Build a model from a ModelConfig, initialised as JAX initialises
     it (same distributions) from a torch Generator seeded with ``seed``."""
-    if cfg.name in TEMPORAL_MODELS:
+    if cfg.name in _NOT_PORTED:
         raise NotImplementedError(
-            f"model {cfg.name!r} is not ported yet: ROADMAP A9 (temporal "
-            "families)")
+            f"model {cfg.name!r} is not ported yet: ROADMAP A9b (the "
+            "r3d_18 and ViT temporal families)")
     if cfg.name not in _REGISTRY:
         raise ValueError(
             f"unknown model {cfg.name!r}; available: {list_models()}")

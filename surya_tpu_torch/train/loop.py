@@ -224,7 +224,9 @@ def _train_and_evaluate(cfg: Config, data, *, mesh=None,
     ``data`` provides ``num_classes``, ``train_batches(epoch_seed)``,
     ``eval_batches(split)`` ('valid', and 'test' if it has one) of
     (images, features, labels) host batches, and optionally
-    ``device_transform(split, generator, batch)``.
+    ``device_transform(split, generator, batch)``. For a temporal model
+    the batches are (clips (B,T,H,W,3), features (B,T,F), labels) and the
+    logged ``images_per_sec`` counts clips.
 
     ``resume=True`` restores the latest checkpoint in
     ``cfg.train.checkpoint_dir`` with its optimizer state and loop
@@ -253,7 +255,8 @@ def _train_and_evaluate(cfg: Config, data, *, mesh=None,
     sample = to_device(next(iter(data.train_batches(0))), device)
     if transform is not None:
         sample = transform("train", prng.named(0, "augment", device), sample)
-    model = get_model(cfg.model, image_size=sample[0].shape[1],
+    # (B,H,W,3) images or (B,T,H,W,3) clips: the width is the size
+    model = get_model(cfg.model, image_size=sample[0].shape[-2],
                       seed=prng.seed_of(0, "init"))
     state, tx = create_train_state(model, cfg, device=device)
     stopper = EarlyStopping(cfg.train.early_stop_metric,

@@ -16,7 +16,12 @@ Rules carried over from JAX:
 - **Freezing.** Frozen parameters get ``requires_grad=False`` and stay out
   of the optimizer, so no backward is built for a frozen trunk. A frozen
   *spatial* trunk keeps its BN in train mode (running statistics go on
-  moving), as the reference's ``model.train()`` does.
+  moving), as the reference's ``model.train()`` does; a frozen *temporal*
+  trunk keeps its BN in inference mode, as JAX's temporal families do
+  (``CnnLstm.train`` keeps its trunk in eval mode).
+- **Batches** are (images NHWC, features, labels) for the spatial
+  families and (clips (B,T,H,W,3), features (B,T,F), labels) for the
+  temporal ones; the step is the same.
 - **NaN guard.** A non-finite loss leaves parameters, optimizer state and
   BN running statistics as they were; the step count still advances. BN
   buffers change during the forward, so the step keeps a copy of them and

@@ -93,6 +93,68 @@ def test_pack_then_train_on_the_pack(disk_dataset, tmp_path, capsys):
     assert rec["steps"] == 3 and np.isfinite(rec["train_loss"])
 
 
+# a temporal preset at the CLI's tiny size: 32 px, 4 classes, f32
+TINY_CLIPS = ["--data.image_size=32", "--model.num_classes=4",
+              "--model.compute_dtype=float32", "--device", "cpu"]
+
+
+def test_train_then_eval_a_temporal_preset(tmp_path, capsys):
+    """``train --preset ji-3dcnn --data.synthetic=true``: synthetic clips
+    of the preset's T = 5, two epochs, the checkpoint read back by
+    ``eval``."""
+    out = str(tmp_path / "run")
+    flags = ["--preset", "ji-3dcnn", "--data.synthetic=true",
+             "--data.synthetic_size=16", "--data.batch_size=4", *TINY_CLIPS]
+    assert main(["train", "--out", out, "--train.epochs=2", *flags]) == 0
+    summary = _last_json(capsys)
+    assert summary["test"]["count"] == 16
+    epochs = [r for r in _records(os.path.join(out, "metrics.jsonl"))
+              if "train_loss" in r]
+    assert [r["steps"] for r in epochs] == [4, 4]
+    assert all(np.isfinite(r["train_loss"]) for r in epochs)
+    assert main(["eval", os.path.join(out, "ckpt"), *flags]) == 0
+    got = _last_json(capsys)
+    np.testing.assert_allclose(got["loss"], summary["test"]["loss"],
+                               rtol=1e-6)
+
+
+def test_pack_sequences_then_train_on_the_pack(tmp_path, capsys):
+    """``pack --sequences`` of a temporal replay window tree at T = 5,
+    then ``quadtree-3d`` and ``cnn-lstm`` (T = 4 from the same windows,
+    truncated) train from the packs and ``eval`` reads the checkpoint."""
+    from surya_tpu_torch.data.replay import make_replay_temporal
+    from surya_tpu_torch.data.sequences import write_windows
+
+    root = str(tmp_path / "windows")
+    write_windows(root, {s: make_replay_temporal(
+        per_class=n, image_size=32, seq_len=5, seed=2000 + i)
+        for i, (s, n) in enumerate((("train", 1), ("valid", 1),
+                                    ("test", 1)))},
+        [f"pose_{i}" for i in range(8)])
+    for preset, t in (("quadtree-3d", 5), ("cnn-lstm", 4)):
+        pdir = str(tmp_path / f"pack{t}")
+        assert main(["pack", "--sequences", "--root", root, "--out", pdir,
+                     "--seq-len", str(t)]) == 0
+        meta = _last_json(capsys)
+        assert meta["kind"] == "sequences"
+        assert meta["splits"]["train"]["count"] == 8
+        out = str(tmp_path / preset)
+        flags = ["--preset", preset, f"--data.packed_dir={pdir}",
+                 f"--data.seq_root={root}", "--data.batch_size=4",
+                 "--data.image_size=32", "--model.compute_dtype=float32",
+                 "--device", "cpu"]
+        assert main(["train", "--out", out, "--train.epochs=1",
+                     *flags]) == 0
+        summary = _last_json(capsys)
+        assert summary["test"]["count"] == 8
+        rec = [r for r in _records(os.path.join(out, "metrics.jsonl"))
+               if "train_loss" in r][0]
+        assert rec["steps"] == 2 and np.isfinite(rec["train_loss"])
+        assert main(["eval", os.path.join(out, "ckpt"), *flags]) == 0
+        np.testing.assert_allclose(_last_json(capsys)["loss"],
+                                   summary["test"]["loss"], rtol=1e-6)
+
+
 def test_compare(tmp_path, capsys):
     out = str(tmp_path / "run")
     assert main(["train", "--synthetic", "--out", out, "--train.epochs=1",
@@ -131,15 +193,18 @@ def test_cli_refusals(tmp_path, capsys):
     assert len(capsys.readouterr().out.strip().splitlines()) == 16
     assert main(["frobnicate"]) == 1
     assert main([]) == 1
-    with pytest.raises(NotImplementedError, match="A9"):
-        main(["train", "--preset", "cnn-lstm", "--synthetic", "--out",
-              str(tmp_path / "t"), "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="A9b"):
+        main(["train", "--preset", "fact", "--synthetic", "--out",
+              str(tmp_path / "t"), "--device", "cpu", *TINY[:3]])
     with pytest.raises(NotImplementedError, match="A11"):
         main(["train", "--synthetic", "--out", str(tmp_path / "m"),
               "--mesh.data=2", *TINY])
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(FileNotFoundError, match="class_to_idx"):
         main(["pack", "--sequences", "--root", str(tmp_path), "--out",
               str(tmp_path / "p")])
+    with pytest.raises(ValueError, match="data.seq_len=4 != model.seq_len=5"):
+        main(["train", "--preset", "quadtree-3d", "--out",
+              str(tmp_path / "s"), "--data.seq_len=4", "--device", "cpu"])
     if not torch.cuda.is_available():   # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["train", "--synthetic", "--out", str(tmp_path / "c")])

@@ -71,7 +71,10 @@ def test_quadrant_kernel_matches_plain(cuda, b, h, cin, cout, dtype, tol):
                                      # edges of the wgmma tiling and split
                                      (1, 5376, 2688, 8), (63, 256, 128, 8),
                                      (100, 264, 40, 5), (256, 5376, 2688, 8),
-                                     (257, 512, 2688, 3)])
+                                     (257, 512, 2688, 3),
+                                     # the temporal families' heads
+                                     (32, 256, 128, 8), (8, 192, 128, 8),
+                                     (8, 1536, 768, 8), (8, 1024, 512, 8)])
 def test_fusion_head_kernel_matches_plain(cuda, b, d, h, c, dtype, tol):
     g = torch.Generator(device=cuda).manual_seed(1)
     x = (torch.randn(b, d, device=cuda, generator=g) * 0.1).to(dtype)
@@ -166,7 +169,8 @@ def test_quadrant_training_form_bf16(cuda):
 @pytest.mark.parametrize("dtype,tol,gtol", [(torch.float32, 1e-4, 1e-5),
                                             (torch.bfloat16, 2e-2, 5e-2)])
 @pytest.mark.parametrize("b,d,h,c", [(64, 256, 512, 8), (70, 264, 40, 5),
-                                     (1, 5376, 2688, 8), (257, 512, 2688, 8)])
+                                     (1, 5376, 2688, 8), (257, 512, 2688, 8),
+                                     (8, 1536, 768, 8), (32, 256, 128, 8)])
 def test_fusion_head_training_form_matches_plain(cuda, b, d, h, c, dtype,
                                                  tol, gtol):
     """Rate 0.5: the kernel's mask is the Philox reference's, the dropped
@@ -393,6 +397,34 @@ def test_spatial_family_on_card_matches_cpu(cuda, name, backbone, mode):
         got = model(images.to(cuda), feats.to(cuda))
     assert thead.launches == before + 1
     assert _rel_err(got.cpu(), want) <= 1e-4
+
+
+@pytest.mark.parametrize("name,mode,t", [("cnn_lstm", "fusion", 4),
+                                        ("ji_3dcnn", "fusion", 5),
+                                        ("quadtree_3d", "fusion", 5),
+                                        ("quadtree_3d", "image_only", 4)])
+def test_temporal_family_on_card_matches_cpu(cuda, name, mode, t):
+    """The temporal families' f32 logits on the card against the CPU
+    (32 px clips, the same weights), each forward one head launch; and a
+    bf16 train-mode forward with dropout draws on the card's generator."""
+    cfg = ModelConfig(name=name, mode=mode, num_classes=5,
+                      compute_dtype="float32")
+    model = get_model(cfg)
+    rng = np.random.default_rng(0)
+    clips = torch.from_numpy(rng.random((2, t, 32, 32, 3)).astype(
+        np.float32))
+    feats = torch.from_numpy(rng.normal(size=(2, t, 47)).astype(np.float32))
+    with torch.no_grad():
+        want = model(clips, feats)
+        model = model.to(cuda)
+        before = thead.launches
+        got = model(clips.to(cuda), feats.to(cuda))
+    assert thead.launches == before + 1
+    assert _rel_err(got.cpu(), want) <= 1e-4
+    bf = get_model(ModelConfig(name=name, mode=mode, num_classes=5)).to(cuda)
+    out = bf.train()(clips.to(cuda), feats.to(cuda),
+                     torch.Generator(device=cuda).manual_seed(0))
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("name,target", [("quadtree", "layer3"),

@@ -359,9 +359,13 @@ def test_pack_arrays_round_trip(tmp_path):
 
 
 def test_sequence_packs_wait_for_a9(tmp_path):
-    with pytest.raises(NotImplementedError, match="A9"):
+    """Sequence packs are ported (ROADMAP A9a; ``tests/
+    test_torch_sequences.py`` holds them to JAX's): a dataset without a
+    class map, or a source without a pack directory, is refused as JAX
+    refuses it."""
+    with pytest.raises(FileNotFoundError, match="class_to_idx"):
         pack_sequences(str(tmp_path), str(tmp_path / "p"))
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="needs packed_dir"):
         PackedSequenceSource(DataConfig())
 
 

@@ -68,15 +68,17 @@ def test_classifier_width_at_224(mode, hidden):
 
 def test_registry_names_roadmap_items():
     """Every spatial family builds (the comparative one over each backbone,
-    and the space-to-depth stem); only the temporal families raise, naming
-    ROADMAP A9; an unknown name is a ValueError."""
+    and the space-to-depth stem), and the temporal ``cnn_lstm``,
+    ``ji_3dcnn`` and ``quadtree_3d``; the other temporal families raise,
+    naming ROADMAP A9b; an unknown name is a ValueError."""
     from surya_tpu_torch.models import TEMPORAL_MODELS, list_models
 
-    assert list_models() == ["attention_hierarchical",
-                             "hierarchical_quadtree", "quadtree",
-                             "standard_multimodal", "standard_resnet"]
-    for name in TEMPORAL_MODELS:
-        with pytest.raises(NotImplementedError, match="A9"):
+    assert list_models() == ["attention_hierarchical", "cnn_lstm",
+                             "hierarchical_quadtree", "ji_3dcnn", "quadtree",
+                             "quadtree_3d", "standard_multimodal",
+                             "standard_resnet"]
+    for name in TEMPORAL_MODELS - set(list_models()):
+        with pytest.raises(NotImplementedError, match="A9b"):
             get_model(ModelConfig(name=name))
     for name in list_models():
         get_model(ModelConfig(name=name, compute_dtype="float32"),
