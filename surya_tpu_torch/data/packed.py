@@ -30,7 +30,6 @@ import shutil
 import numpy as np
 
 from surya_tpu_torch.core.config import DataConfig
-from surya_tpu_torch.data.batching import epoch_order, pad_eval_iter
 from surya_tpu_torch.data.dataset import (
     STATS_FILES,
     DiskDataSource,
@@ -40,6 +39,7 @@ from surya_tpu_torch.data.imputation import (
     ClassFeatureStats,
     compute_class_stats,
 )
+from surya_tpu_torch.data.sequences import SequenceDataSource
 from surya_tpu_torch.features import FEATURE_NAMES_47
 
 META_NAME = "packed_meta.json"
@@ -65,10 +65,13 @@ def split_paths(out_dir: str, split: str) -> dict:
     }
 
 
-def _new_meta(staging: int, source_root: str, class_names) -> dict:
-    return {"format_version": FORMAT_VERSION, "kind": "flat",
-            "staging": staging, "source_root": source_root,
-            "class_names": list(class_names), "splits": {}}
+def _new_meta(kind: str, source_root: str, class_names, **shape) -> dict:
+    """A pack's metadata with no split yet; ``shape`` holds the keys that
+    fix its sample shape (``staging`` for a flat pack, ``seq_len`` for a
+    sequence pack)."""
+    return {"format_version": FORMAT_VERSION, "kind": kind, **shape,
+            "source_root": source_root, "class_names": list(class_names),
+            "splits": {}}
 
 
 def _write_meta(out_dir: str, meta: dict) -> None:
@@ -106,6 +109,52 @@ def _write_split(out_dir: str, meta: dict, split: str, labels, chunks,
     _write_meta(out_dir, meta)
 
 
+def _pack(out_dir: str, meta: dict, counts: dict, write, copy_from: str,
+          copy_names, overwrite: bool, verbose: bool, noun: str) -> dict:
+    """The packers' shared frame. A pack already in ``out_dir`` lends its
+    finished splits when its kind, shape keys and classes match ``meta``
+    (and raises otherwise, unless ``overwrite``); each split of ``counts``
+    ({split: n samples}) is written by ``write(split)`` unless it is
+    already packed at that size (resume); ``copy_names`` are copied from
+    ``copy_from`` so the pack is self-contained. Returns the metadata."""
+    os.makedirs(out_dir, exist_ok=True)
+    meta_path = os.path.join(out_dir, META_NAME)
+    if os.path.exists(meta_path) and not overwrite:
+        with open(meta_path) as f:
+            old = json.load(f)
+        old.setdefault("kind", "flat")
+        shape = [k for k in meta if k not in (
+            "format_version", "kind", "source_root", "class_names",
+            "splits")]
+        if any(old.get(k) != meta[k]
+               for k in ("kind", *shape, "class_names")):
+            have = " ".join(f"{k}={old.get(k)}" for k in shape)
+            want = " ".join(f"{k}={meta[k]}" for k in shape)
+            raise ValueError(
+                f"{out_dir} holds a {old['kind']} pack with {have} "
+                f"classes={old.get('class_names')}; requested a "
+                f"{meta['kind']} pack with {want}. Pass overwrite=True or "
+                "use a fresh out_dir.")
+        meta["splits"] = old.get("splits", {})
+
+    for split, n in counts.items():
+        done = meta["splits"].get(split)
+        if (done and done.get("count") == n and not overwrite
+                and all(os.path.exists(p)
+                        for p in split_paths(out_dir, split).values())):
+            if verbose:
+                print(f"[pack] {split}: {n} {noun} already packed, skipping")
+            continue
+        write(split)
+
+    for name in copy_names:
+        s = os.path.join(copy_from, name)
+        if os.path.exists(s):
+            shutil.copy2(s, os.path.join(out_dir, name))
+    _write_meta(out_dir, meta)
+    return meta
+
+
 def pack_dataset(data_root: str, out_dir: str, staging: int = 256,
                  splits=("train", "valid", "test"), use_native: bool = True,
                  chunk: int = 256, overwrite: bool = False,
@@ -119,33 +168,12 @@ def pack_dataset(data_root: str, out_dir: str, staging: int = 256,
     cfg = DataConfig(data_root=data_root, batch_size=chunk)
     src = DiskDataSource(cfg, splits=splits, staging_size=staging,
                          use_native=use_native)
-    os.makedirs(out_dir, exist_ok=True)
+    meta = _new_meta("flat", os.path.abspath(data_root), src.class_names,
+                     staging=staging)
 
-    meta_path = os.path.join(out_dir, META_NAME)
-    meta = _new_meta(staging, os.path.abspath(data_root), src.class_names)
-    if os.path.exists(meta_path) and not overwrite:
-        with open(meta_path) as f:
-            old = json.load(f)
-        if (old.get("kind", "flat") != "flat"
-                or old.get("staging") != staging
-                or old.get("class_names") != meta["class_names"]):
-            raise ValueError(
-                f"{out_dir} holds a {old.get('kind', 'flat')} pack with "
-                f"staging={old.get('staging')} "
-                f"classes={old.get('class_names')}; requested "
-                f"staging={staging}. Pass overwrite=True or "
-                f"use a fresh out_dir.")
-        meta["splits"] = old.get("splits", {})
-
-    for split, (_paths, _fpaths, labels, _names) in src.index.items():
+    def write(split):
+        labels = src.index[split][2]
         n = len(labels)
-        done = meta["splits"].get(split)
-        if (done and done.get("count") == n and not overwrite
-                and all(os.path.exists(p)
-                        for p in split_paths(out_dir, split).values())):
-            if verbose:
-                print(f"[pack] {split}: {n} images already packed, skipping")
-            continue
         if verbose:
             print(f"[pack] {split}: decoding {n} images at {staging}px")
         _write_split(out_dir, meta, split, labels, (
@@ -153,12 +181,9 @@ def pack_dataset(data_root: str, out_dir: str, staging: int = 256,
             [:2] for start in range(0, n, chunk)))
 
     # the per-class stats go next to the pack, so it is self-contained
-    for name in STATS_FILES:
-        s = os.path.join(data_root, name)
-        if os.path.exists(s):
-            shutil.copy2(s, os.path.join(out_dir, name))
-    _write_meta(out_dir, meta)
-    return meta
+    return _pack(out_dir, meta,
+                 {split: len(ix[2]) for split, ix in src.index.items()},
+                 write, data_root, STATS_FILES, overwrite, verbose, "images")
 
 
 def pack_arrays(out_dir: str, splits: dict[str, tuple],
@@ -172,7 +197,7 @@ def pack_arrays(out_dir: str, splits: dict[str, tuple],
     staging = {imgs.shape[1] for imgs, _, _ in splits.values()}
     if len(staging) != 1:
         raise ValueError(f"splits have different staging sizes {staging}")
-    meta = _new_meta(staging.pop(), "", class_names)
+    meta = _new_meta("flat", "", class_names, staging=staging.pop())
     for split, (imgs, feats, labels) in splits.items():
         if imgs.dtype != np.uint8 or imgs.ndim != 4 or imgs.shape[3] != 3:
             raise ValueError(f"{split}: images must be uint8 (N,S,S,3), "
@@ -259,39 +284,14 @@ def pack_sequences(seq_root: str, out_dir: str, seq_len: int = 4,
     (N, T, H, W, 3) uint8 memmap. Windows are padded or truncated to
     ``seq_len`` with the live loader's rule, so packed batches are
     byte-identical to ``SequenceDataSource``'s. Returns the metadata."""
-    from surya_tpu_torch.data.sequences import SequenceDataSource
-
     src = SequenceDataSource(DataConfig(seq_root=seq_root, seq_len=seq_len),
                              splits=splits)
-    os.makedirs(out_dir, exist_ok=True)
+    meta = _new_meta("sequences", os.path.abspath(seq_root),
+                     src.class_names, seq_len=seq_len)
 
-    meta_path = os.path.join(out_dir, META_NAME)
-    meta = {"format_version": FORMAT_VERSION, "kind": "sequences",
-            "seq_len": seq_len, "source_root": os.path.abspath(seq_root),
-            "class_names": list(src.class_names), "splits": {}}
-    if os.path.exists(meta_path) and not overwrite:
-        with open(meta_path) as f:
-            old = json.load(f)
-        if (old.get("kind") != "sequences"
-                or old.get("seq_len") != seq_len
-                or old.get("class_names") != meta["class_names"]):
-            raise ValueError(
-                f"{out_dir} holds a {old.get('kind', 'flat')} pack "
-                f"(seq_len={old.get('seq_len')}); requested sequences "
-                f"seq_len={seq_len}. Pass overwrite=True or a fresh "
-                f"out_dir.")
-        meta["splits"] = old.get("splits", {})
-
-    for split, files in src.index.items():
+    def write(split):
+        files = src.index[split]
         n = len(files)
-        done = meta["splits"].get(split)
-        if (done and done.get("count") == n and not overwrite
-                and all(os.path.exists(p)
-                        for p in split_paths(out_dir, split).values())):
-            if verbose:
-                print(f"[pack] {split}: {n} windows already packed, "
-                      "skipping")
-            continue
         if verbose:
             print(f"[pack] {split}: packing {n} windows (T={seq_len})")
         shape = src._load(files[0])[0].shape if n else (seq_len, 1, 1, 3)
@@ -304,19 +304,19 @@ def pack_sequences(seq_root: str, out_dir: str, seq_len: int = 4,
 
         _write_split(out_dir, meta, split, labels, chunks(), shape)
 
-    for name in ("class_to_idx.json",) + STATS_FILES:
-        s = os.path.join(seq_root, name)
-        if os.path.exists(s):
-            shutil.copy2(s, os.path.join(out_dir, name))
-    _write_meta(out_dir, meta)
-    return meta
+    return _pack(out_dir, meta,
+                 {split: len(files) for split, files in src.index.items()},
+                 write, seq_root, ("class_to_idx.json",) + STATS_FILES,
+                 overwrite, verbose, "windows")
 
 
-class PackedSequenceSource:
-    """``SequenceDataSource`` drop-in over the packed sequence memmaps: the
-    same batches, epoch order, eval padding and device transform (the
-    shared helpers of ``data/batching.py`` and
-    ``sequence_device_transform``)."""
+class PackedSequenceSource(SequenceDataSource):
+    """``SequenceDataSource`` drop-in over the packed sequence memmaps.
+
+    Inherits the batching, epoch order, eval padding, pinning and the
+    device transform; only the index (labels per split) and
+    ``_load_batch`` (a memmap gather instead of reading ``.npz`` windows)
+    differ."""
 
     def __init__(self, cfg: DataConfig, packed_dir: str | None = None,
                  stats: ClassFeatureStats | None = None, seed: int = 0,
@@ -347,46 +347,18 @@ class PackedSequenceSource:
         self.pad_eval_to = pad_eval_to
         self.pin_memory = pin_memory
         self.packed_dir = pdir
-        self.class_names = list(meta["class_names"])
-        self.num_classes = len(self.class_names)
-        if stats is not None:
-            self.stats = stats.aligned_to(self.class_names)
-        else:
-            self.stats = (load_stats(pdir, self.class_names)
-                          if cfg.standardize_features else None)
+        self._set_classes(meta["class_names"], stats, pdir)
 
-        self._images, self._feats, self._labels = {}, {}, {}
+        self._images, self._feats = {}, {}
+        self.index = {}      # the labels: the batching reads only len()
         for split in meta["splits"]:
             files = split_paths(pdir, split)
             self._images[split] = np.load(files["images"], mmap_mode="r")
             self._feats[split] = np.load(files["features"])
-            self._labels[split] = np.load(files["labels"])
-        if "train" not in self._images:
+            self.index[split] = np.load(files["labels"])
+        if "train" not in self.index:
             raise FileNotFoundError(f"no packed train split under {pdir}")
 
-    def _batches(self, split: str, order):
-        from surya_tpu_torch.data.sequences import pinned
-
-        bs = self.cfg.batch_size
-        for i in range(0, len(order), bs):
-            idx = order[i:i + bs]
-            batch = (self._images[split][idx], self._feats[split][idx],
-                     self._labels[split][idx])
-            yield pinned(batch) if self.pin_memory else batch
-
-    def train_batches(self, epoch_seed: int = 0):
-        n = len(self._labels["train"])
-        order = epoch_order(n, self.cfg.batch_size, self.seed, epoch_seed)
-        return self._batches("train", order)
-
-    def eval_batches(self, split: str):
-        if split not in self._labels:
-            raise KeyError(split)
-        it = self._batches(split, np.arange(len(self._labels[split])))
-        return pad_eval_iter(it, self.pad_eval_to)
-
-    def device_transform(self, split: str, generator, batch):
-        from surya_tpu_torch.data.sequences import sequence_device_transform
-
-        return sequence_device_transform(self.cfg, self.stats, split,
-                                         generator, batch)
+    def _load_batch(self, split: str, idx: np.ndarray):
+        return (self._images[split][idx], self._feats[split][idx],
+                self.index[split][idx])

@@ -176,16 +176,8 @@ class SequenceDataSource:
         root = cfg.seq_root
         with open(os.path.join(root, "class_to_idx.json")) as f:
             self.class_to_idx = json.load(f)
-        self.class_names = sorted(self.class_to_idx,
-                                  key=self.class_to_idx.get)
-        self.num_classes = len(self.class_names)
-        # per-class stats for the per-time-step standardisation; rows
-        # follow class_to_idx's label order
-        if stats is not None:
-            self.stats = stats.aligned_to(self.class_names)
-        else:
-            self.stats = (load_stats(root, self.class_names)
-                          if cfg.standardize_features else None)
+        self._set_classes(sorted(self.class_to_idx, key=self.class_to_idx.get),
+                          stats, root)
         self.index = {}
         for s in splits:
             sdir = os.path.join(root, s)
@@ -201,6 +193,18 @@ class SequenceDataSource:
                           if f.endswith(".npz")]
             self.index[s] = files
 
+    def _set_classes(self, class_names, stats, stats_root: str) -> None:
+        """The class names in label order, and the per-class stats for the
+        per-time-step standardisation (given, or read from ``stats_root``
+        when ``standardize_features`` is set), aligned to them."""
+        self.class_names = list(class_names)
+        self.num_classes = len(self.class_names)
+        if stats is not None:
+            self.stats = stats.aligned_to(self.class_names)
+        else:
+            self.stats = (load_stats(stats_root, self.class_names)
+                          if self.cfg.standardize_features else None)
+
     def _load(self, path: str):
         t = self.cfg.seq_len
         try:
@@ -215,14 +219,16 @@ class SequenceDataSource:
             return (np.zeros((t, h, h, 3), np.uint8),
                     np.zeros((t, 47), np.float32), 0)
 
+    def _load_batch(self, split: str, idx: np.ndarray) -> tuple:
+        samples = [self._load(self.index[split][j]) for j in idx]
+        return (np.stack([s[0] for s in samples]),
+                np.stack([s[1] for s in samples]),
+                np.asarray([s[2] for s in samples], np.int32))
+
     def _batches(self, split: str, order) -> Iterator[tuple]:
-        files = self.index[split]
         bs = self.cfg.batch_size
         for i in range(0, len(order), bs):
-            samples = [self._load(files[j]) for j in order[i:i + bs]]
-            batch = (np.stack([s[0] for s in samples]),
-                     np.stack([s[1] for s in samples]),
-                     np.asarray([s[2] for s in samples], np.int32))
+            batch = self._load_batch(split, order[i:i + bs])
             yield pinned(batch) if self.pin_memory else batch
 
     def train_batches(self, epoch_seed: int = 0) -> Iterator[tuple]:

@@ -21,9 +21,10 @@ The global pool is an f32 mean rounded to the compute dtype, as
 ``jnp.mean(x, axis=(1,2,3), dtype=dtype)``.
 
 ``conv3d_as_2d`` (``ModelConfig.conv3d_as_2d``, JAX's ``Conv3dAs2D``) keeps
-the same parameters and computes each k = 3 conv as three temporally
-shifted batched 2-D convolutions, ``y[t] = Σ_dt conv2d(x[t+dt-1], K[dt])``;
-both forms compute the same function.
+the same parameters. In JAX it is a TPU layout lever (three temporally
+shifted 2-D convolutions, as the TPU's conv units are 2-D); on CUDA it has
+no effect: both settings run cuDNN's 3-D convolution. The field is read
+and stored so a model built with it has the same modules and parameters.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ QT3D_MODES = ("fusion", "image_only")
 
 class Conv3d(nn.Module):
     """k = (3,3,3), padding 1 on every side, with a bias: flax ``nn.Conv``
-    (or ``Conv3dAs2D`` with ``as_2d``). Maps NCDHW → NCDHW."""
+    or ``Conv3dAs2D``, which compute the same function. ``as_2d`` is stored
+    and does not change the computation. Maps NCDHW → NCDHW."""
 
     def __init__(self, cin: int, cout: int, as_2d: bool = False):
         super().__init__()
@@ -59,18 +61,8 @@ class Conv3d(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
-        if not self.as_2d:
-            return F.conv3d(x, w, bias, padding=1)
-        b, c, t, h, wd = x.shape
-        xp = F.pad(x, (0, 0, 0, 0, 1, 1))                    # pad T by 1
-        y = None
-        for dt in range(3):      # frames folded into the batch, NCHW
-            xi = xp[:, :, dt:dt + t].transpose(1, 2).reshape(b * t, c, h, wd)
-            yi = F.conv2d(xi, w[:, :, dt], padding=1)
-            y = yi if y is None else y + yi
-        y = y + bias[:, None, None]
-        return y.reshape(b, t, -1, h, wd).transpose(1, 2)
+        return F.conv3d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                        padding=1)
 
 
 def _pool3d(x, window):
