@@ -41,16 +41,22 @@ processes that run it):
   ``eval`` for ``comparative-mobilenet-v2`` and for ``quadtree-fusion
   --model.name=hierarchical_quadtree``; and the head kernel timed at the
   two new edge widths (D 25,344 and D 128 → H 1024).
-- **temporal**: ``cnn-lstm``, ``ji-3dcnn`` and ``quadtree-3d`` (fusion and
-  image_only) at 224 px, 8 classes, 47 features, each preset's own T (4,
-  5), random weights from seed 0: f32 logits on the card against the CPU,
-  bf16 ``Predictor.predict`` clips/s at the preset batch (uint8 wire) and
-  5 bf16 train steps at the preset batch, the head's launches counted
-  exactly; one temporal ``.npz`` request to ``/predict``; the temporal
-  replay set (``make_replay_temporal``) written as ``.npz`` windows,
-  ``pack --sequences`` at T = 5 and 4, the CLI's ``train`` (2 epochs) and
-  ``eval`` for ``quadtree-3d`` and ``cnn-lstm``; the head kernel timed at
-  the four temporal widths in both forms.
+- **temporal**: ``cnn-lstm``, ``ji-3dcnn``, ``quadtree-3d`` (fusion and
+  image_only), ``resnet3d-video``, ``hybrid-quadtree-3d`` (fusion and
+  image_only), ``fact`` and ``fact-bs16`` at 224 px, 8 classes, 47
+  features, each preset's own T (4, 5), random weights from seed 0: f32
+  logits on the card against the CPU, bf16 ``Predictor.predict`` clips/s
+  at the preset batch (uint8 wire) and 5 bf16 train steps at the preset
+  batch, the head's launches counted exactly (none on FACT, whose head is
+  LN + Dense); the frozen trunks held: cnn-lstm's BN statistics and the
+  r3d models' stem..layer3 ones bit-unchanged by the steps while layer4's
+  move, FACT's ViT parameters bit-unchanged; one temporal ``.npz``
+  request to ``/predict``; the temporal replay set
+  (``make_replay_temporal``) written as ``.npz`` windows, ``pack
+  --sequences`` at T = 5 and 4, the CLI's ``train`` (2 epochs) and
+  ``eval`` for ``quadtree-3d``, ``cnn-lstm``, ``hybrid-quadtree-3d`` and
+  ``fact``; the head kernel timed at the six temporal widths in both
+  forms.
 
 It times kernels, serving and the train step with CUDA events; each
 main-path kernel in turns with its library yardstick, after the same L2
@@ -111,9 +117,11 @@ SPATIAL_HEAD_SHAPES = [(16, 25344, 512, 8), (64, 2176, 1024, 8),
 HEAD_SHAPES += SPATIAL_HEAD_SHAPES
 # the temporal families' heads at their preset batches (temporal phase):
 # cnn-lstm (D 256 → 128, B 32), ji-3dcnn (192 → 128, B 8), quadtree-3d in
-# fusion (1536 → 768) and image_only (1024 → 512) mode, B 8
+# fusion (1536 → 768) and image_only (1024 → 512) mode, B 8; resnet3d-video
+# and hybrid-quadtree-3d image_only (512 → 256), hybrid fusion (768 → 384)
 TEMPORAL_HEAD_SHAPES = [(32, 256, 128, 8), (8, 192, 128, 8),
-                        (8, 1536, 768, 8), (8, 1024, 512, 8)]
+                        (8, 1536, 768, 8), (8, 1024, 512, 8),
+                        (8, 512, 256, 8), (8, 768, 384, 8)]
 HEAD_SHAPES += TEMPORAL_HEAD_SHAPES
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max |kernel - plain| / max |plain|
 
@@ -1808,12 +1816,25 @@ TEMPORAL_CONFIGS = [
     ("ji-3dcnn", "ji-3dcnn", {}),
     ("quadtree-3d", "quadtree-3d", {}),
     ("quadtree-3d-image-only", "quadtree-3d", {"model.mode": "image_only"}),
+    ("resnet3d-video", "resnet3d-video", {}),
+    ("hybrid-quadtree-3d", "hybrid-quadtree-3d", {}),
+    ("hybrid-quadtree-3d-image-only", "hybrid-quadtree-3d",
+     {"model.mode": "image_only"}),
+    ("fact", "fact", {}),
+    ("fact-bs16", "fact-bs16", {}),
 ]
+# each family's preset dropout, and the families whose trunk trains layer4
+# only (its BN on batch statistics) under freeze_backbone
+TEMPORAL_DROPOUT = {"cnn_lstm": 0.5, "ji_3dcnn": 0.5, "quadtree_3d": 0.6,
+                    "resnet3d_video": 0.5, "hybrid_quadtree_3d": 0.6,
+                    "fact": 0.1}
+PARTIAL_UNFREEZE = ("resnet3d_video", "hybrid_quadtree_3d")
 TEMPORAL_STEPS, TEMPORAL_SERVE_CHUNKS = 5, 4
 # the CLI's temporal replay windows per class (make_replay_disk.py's
 # layout and seeds 2000-2002, 224 px, T = 5), and the packs trained from
 TEMPORAL_WINDOWS = {"train": 8, "valid": 4, "test": 4}
-TEMPORAL_CLI = [("quadtree-3d", 5), ("cnn-lstm", 4)]
+TEMPORAL_CLI = [("quadtree-3d", 5), ("cnn-lstm", 4), ("hybrid-quadtree-3d", 5),
+                ("fact", 4)]
 REPLAY_CLASSES = [f"pose_{i}" for i in range(8)]
 
 
@@ -1836,17 +1857,24 @@ def temporal_model(label, cfg, quadrant, fusion_head, card):
     seed 0: f32 logits on the card against the CPU (B = 2), bf16
     ``Predictor.predict`` clips/s at the preset batch (uint8 wire, 3 runs of
     4 chunks), 5 bf16 train steps at the preset batch with the preset's
-    dropout, and the head's launches in each, counted exactly; for the
-    frozen ``cnn-lstm`` trunk, its BN statistics unchanged by the steps."""
+    dropout, and the head's launches in each, counted exactly (one a
+    forward; none on FACT). The frozen trunks through the steps: the
+    ``cnn-lstm`` trunk's BN statistics unchanged; the r3d models'
+    stem..layer3 statistics unchanged and layer4's moved; FACT's ViT
+    parameters unchanged."""
     from surya_tpu_torch.infer.serve import Predictor
     from surya_tpu_torch.models import get_model
+    from surya_tpu_torch.models.backbones import trunk_channels_last
     from surya_tpu_torch.train import create_train_state, make_train_step
 
-    bs = cfg.data.batch_size
+    bs, family = cfg.data.batch_size, cfg.model.name
+    size = cfg.data.image_size
+    heads = int(family != "fact")     # FACT's head is LN + Dense
     f32 = dataclasses.replace(cfg.model, compute_dtype="float32")
-    base = get_model(f32, seed=0)
+    base = get_model(f32, image_size=size, seed=0)
     state = base.state_dict()
-    head = [base.classifier.fc1.in_features, base.classifier.fc1.out_features]
+    head = ([base.classifier.fc1.in_features,
+             base.classifier.fc1.out_features] if heads else None)
     clips, feats, _ = clip_batch(cfg, TEMPORAL_SERVE_CHUNKS * bs)
 
     x = torch.from_numpy(clips[:2]).float() / 255.0
@@ -1855,9 +1883,7 @@ def temporal_model(label, cfg, quadrant, fusion_head, card):
         t0 = time.perf_counter()
         want = base(x, f)
         cpu_s = time.perf_counter() - t0
-        gpu = copy.deepcopy(base).cuda()
-        if hasattr(gpu, "trunk"):
-            gpu.trunk.to(memory_format=torch.channels_last)
+        gpu = trunk_channels_last(copy.deepcopy(base).cuda())
         reset_launches(quadrant, fusion_head)
         got = gpu(x.cuda(), f.cuda())
         torch.cuda.synchronize()
@@ -1867,10 +1893,10 @@ def temporal_model(label, cfg, quadrant, fusion_head, card):
     assert rel <= TOL["float32"] and bool(torch.isfinite(got).all()), (
         label, err, rel)
     assert f32_launches == {"quadrant": 0, "quadrant_train": 0,
-                            "fusion_head": 1, "fusion_head_train": 0}, (
+                            "fusion_head": heads, "fusion_head_train": 0}, (
         label, f32_launches)
 
-    predictor = Predictor(cfg.model, state, batch_size=bs,
+    predictor = Predictor(cfg.model, state, batch_size=bs, image_size=size,
                           param_dtype=torch.bfloat16, input_dtype="uint8")
     predictor.predict(clips[:bs], feats[:bs])              # warm-up
     reset_launches(quadrant, fusion_head)
@@ -1883,19 +1909,25 @@ def temporal_model(label, cfg, quadrant, fusion_head, card):
     assert preds.shape == (len(clips),) and np.isfinite(probs).all()
     assert serve_launches == {
         "quadrant": 0, "quadrant_train": 0,
-        "fusion_head": 3 * TEMPORAL_SERVE_CHUNKS, "fusion_head_train": 0}, (
-        label, serve_launches)
+        "fusion_head": 3 * TEMPORAL_SERVE_CHUNKS * heads,
+        "fusion_head_train": 0}, (label, serve_launches)
 
-    model = get_model(cfg.model, seed=0)
+    model = get_model(cfg.model, image_size=size, seed=0)
     model.load_state_dict(state, strict=True)
-    dropout = model.classifier.dropout
-    assert dropout == (0.6 if cfg.model.name == "quadtree_3d" else 0.5)
+    dropout = (model.fusion0 if family == "fact" else
+               model.classifier).dropout
+    assert dropout == TEMPORAL_DROPOUT[family], (label, dropout)
     train_state, tx = create_train_state(model, cfg)
     step = make_train_step(model, tx, cfg)
     batch = tuple(torch.from_numpy(a).cuda()
                   for a in clip_batch(cfg, bs, seed=1, raw=False))
-    trunk = {k: v.clone() for k, v in model.state_dict().items()
+    partial = family in PARTIAL_UNFREEZE
+    stats = {k: v.clone() for k, v in model.state_dict().items()
              if k.startswith("trunk.") and "running_" in k}
+    vit = {k: p.detach().clone() for k, p in model.named_parameters()
+           if k.startswith("vit_backbone.")}
+    assert not any(p.requires_grad for k, p in model.named_parameters()
+                   if k in vit)
     reset_launches(quadrant, fusion_head)
     losses, ms = [], []
     for _ in range(TEMPORAL_STEPS):
@@ -1911,15 +1943,21 @@ def temporal_model(label, cfg, quadrant, fusion_head, card):
     assert np.isfinite(losses).all(), (label, losses)
     assert train_launches == {
         "quadrant": 0, "quadrant_train": 0, "fusion_head": 0,
-        "fusion_head_train": TEMPORAL_STEPS}, (label, train_launches)
+        "fusion_head_train": TEMPORAL_STEPS * heads}, (label, train_launches)
     after = model.state_dict()
-    frozen_bn_kept = all(torch.equal(v, after[k]) for k, v in trunk.items())
-    assert frozen_bn_kept, label          # empty (True) without a trunk
-    row = {"phase": "temporal", "model": label, "family": cfg.model.name,
+    moved = sorted(k for k in stats if partial and "layer4" in k)
+    kept = [k for k in stats if k not in moved]
+    assert all(torch.equal(stats[k], after[k]) for k in kept), label
+    assert all(not torch.equal(stats[k], after[k]) for k in moved), label
+    assert all(torch.equal(v, after[k]) for k, v in vit.items()), label
+    assert (len(moved) == 10) == partial, (label, len(moved))  # 5 BNs
+    row = {"phase": "temporal", "model": label, "family": family,
            "mode": cfg.model.mode, "seq_len": cfg.data.seq_len,
            "image_size": cfg.data.image_size, "head_d_h": head,
            "freeze_backbone": cfg.model.freeze_backbone,
-           "frozen_trunk_bn_stats": len(trunk),
+           "frozen_trunk_bn_stats": len(kept),
+           "moved_layer4_bn_stats": len(moved),
+           "frozen_vit_params": len(vit),
            "f32_card_vs_cpu": {"batch": 2, "max_abs_err": err,
                                "max_rel_err": rel, "tol": TOL["float32"],
                                "cpu_forward_s": cpu_s},
@@ -1979,10 +2017,11 @@ def temporal_cli(card):
     """The temporal replay set (``make_replay_temporal``, 8/4/4 windows
     per class, 224 px, T = 5) written as ``.npz`` windows in
     ``scripts/make_replay_disk.py``'s layout; ``pack --sequences`` at
-    T = 5 and T = 4; ``train`` for 2 epochs with ``--preset quadtree-3d``
-    and with ``--preset cnn-lstm`` from those packs, then ``eval`` of each
-    best checkpoint: finite losses, eval = the loop's test loss, and each
-    child's head launches counted exactly."""
+    T = 5 and T = 4; ``train`` for 2 epochs from those packs with each
+    preset of :data:`TEMPORAL_CLI` (``quadtree-3d``, ``cnn-lstm``,
+    ``hybrid-quadtree-3d``, ``fact``), then ``eval`` of each best
+    checkpoint: finite losses, eval = the loop's test loss, and each
+    child's head launches counted exactly (none for FACT)."""
     import shutil
     import tempfile
 
@@ -2007,13 +2046,18 @@ def temporal_cli(card):
         count = {s: 8 * n for s, n in TEMPORAL_WINDOWS.items()}
         for preset, t in TEMPORAL_CLI:
             pack = os.path.join(root, f"pack{t}")
-            t0 = time.perf_counter()
-            _, meta = run_cli(["pack", "--sequences", "--root", windows,
-                               "--out", pack, "--seq-len", str(t)])
-            pack_s = time.perf_counter() - t0
-            assert meta["kind"] == "sequences", meta
-            assert {s: v["count"] for s, v in meta["splits"].items()} == count
-            bs = get_preset(preset).data.batch_size
+            pack_s = None   # one pack per T, shared by the presets
+            if not os.path.isdir(pack):
+                t0 = time.perf_counter()
+                _, meta = run_cli(["pack", "--sequences", "--root", windows,
+                                   "--out", pack, "--seq-len", str(t)])
+                pack_s = time.perf_counter() - t0
+                assert meta["kind"] == "sequences", meta
+                assert {s: v["count"]
+                        for s, v in meta["splits"].items()} == count
+            preset_cfg = get_preset(preset)
+            bs = preset_cfg.data.batch_size
+            heads = int(preset_cfg.model.name != "fact")
             steps = count["train"] // bs
             evals = -(-count["valid"] // bs), -(-count["test"] // bs)
             flags = ["--preset", preset, f"--data.packed_dir={pack}",
@@ -2024,8 +2068,8 @@ def temporal_cli(card):
                                   "--train.epochs=2"])
             train_s = time.perf_counter() - t0
             epochs = epoch_records(run)
-            want = {"training": 2 * steps,
-                    "inference": 2 * evals[0] + evals[1]}
+            want = {"training": 2 * steps * heads,
+                    "inference": (2 * evals[0] + evals[1]) * heads}
             launches = summary["kernel_launches"]
             assert launches["fusion_head"] == want, (preset, launches)
             assert launches["quadrant"] == {"training": 0, "inference": 0}
@@ -2036,7 +2080,8 @@ def temporal_cli(card):
             best = os.path.join(run, "ckpt", f"{summary['best_epoch']}.pt")
             _, ev = run_cli(["eval", best, *flags])
             assert ev["kernel_launches"]["fusion_head"] == {
-                "training": 0, "inference": evals[1]}, ev["kernel_launches"]
+                "training": 0, "inference": evals[1] * heads}, (
+                ev["kernel_launches"])
             assert ev["count"] == summary["test"]["count"]
             assert abs(ev["loss"] - summary["test"]["loss"]) <= 1e-5 * max(
                 1.0, abs(summary["test"]["loss"])), (ev, summary["test"])
@@ -2067,7 +2112,7 @@ def temporal_cli(card):
 def temporal_phase(quadrant, fusion_head, stem_bn, card):
     """Every temporal configuration (:data:`TEMPORAL_CONFIGS`), one temporal
     request over HTTP, the CLI on the temporal replay set, and the head
-    kernel timed at the four temporal widths in both forms. → (launches of
+    kernel timed at the six temporal widths in both forms. → (launches of
     the whole phase per kernel form, timed rows)."""
     from surya_tpu_torch.core.config import get_preset
 

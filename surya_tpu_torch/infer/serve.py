@@ -24,6 +24,7 @@ import torch
 
 from surya_tpu_torch.core.config import ModelConfig
 from surya_tpu_torch.models import get_model
+from surya_tpu_torch.models.backbones import trunk_channels_last
 from surya_tpu_torch.models.common import apply_mode_ablation
 from surya_tpu_torch.ops import resolve_device
 
@@ -67,8 +68,7 @@ class Predictor:
         model.load_state_dict(state_dict, strict=True)
         if param_dtype is not None:
             cast_params(model, param_dtype)
-        if hasattr(model, "trunk"):   # cuDNN convs in NHWC, no re-layout
-            model.trunk.to(memory_format=torch.channels_last)
+        trunk_channels_last(model)   # cuDNN convs without a re-layout
         self.model = model.to(self.device).eval()
 
     @torch.inference_mode()

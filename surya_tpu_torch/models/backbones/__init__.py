@@ -1,7 +1,8 @@
 """Backbones: pooled-feature extractors for every reference backbone,
 mirroring ``surya_tpu/models/backbones/__init__.py``
 (resnet18/34/50, vgg16, mobilenet_v2, densenet121, classifier stripped),
-each taking an NHWC batch and returning a (B, dim) feature vector."""
+each taking an NHWC batch and returning a (B, dim) feature vector; and the
+temporal families' trunks, r3d_18 (``resnet3d``) and ViT-B/16 (``vit``)."""
 
 from __future__ import annotations
 
@@ -14,6 +15,31 @@ from surya_tpu_torch.models.backbones.resnet import (  # noqa: F401
     global_avg_pool,
     make_resnet,
 )
+from surya_tpu_torch.models.backbones.resnet3d import (  # noqa: F401
+    ResNet3D,
+    r3d_18,
+)
+
+
+def __getattr__(name):
+    # the ViT imports models.common, which imports this package: it loads
+    # on first use, not with the package
+    if name in ("ViT", "vit_base_patch16"):
+        from surya_tpu_torch.models.backbones import vit
+
+        return getattr(vit, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def trunk_channels_last(model: nn.Module) -> nn.Module:
+    """Lay out ``model.trunk``'s conv weights (if it has a trunk) as its
+    convolutions run, so cuDNN needs no re-layout: channels_last for a 2-D
+    trunk, its own ``memory_format`` (channels_last_3d) for r3d_18."""
+    trunk = getattr(model, "trunk", None)
+    if trunk is not None:
+        trunk.to(memory_format=getattr(trunk, "memory_format",
+                                       torch.channels_last))
+    return model
 
 # at 224 px (vgg16's flatten depends on the image size: vgg.feature_dim)
 BACKBONE_DIMS = {

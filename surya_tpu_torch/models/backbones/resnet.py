@@ -41,11 +41,15 @@ STAGES = ("stem", "layer1", "layer2", "layer3", "layer4")
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, generator=None):
     """flax ``lecun_normal``: truncated normal (±2σ) with variance
-    1/fan_in, σ corrected for the truncation."""
+    1/fan_in, σ corrected for the truncation. Sampled as
+    ``jax.random.truncated_normal`` samples it, by the inverse CDF of a
+    uniform draw (torch's ``trunc_normal_`` rejection loop takes 8 s for
+    FACT's 114M parameters on one CPU thread)."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    edge = math.erf(2.0 / math.sqrt(2.0))
     with torch.no_grad():
-        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-        w.mul_(std)
+        w.uniform_(-edge, edge, generator=generator)
+        w.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(std)
     return w
 
 

@@ -70,15 +70,23 @@ def reset_model(model: nn.Module, generator=None) -> None:
             reset_dense(m, generator)
 
 
-def flax_dropout(x, rate: float, generator, training: bool):
+def flax_dropout(x, rate: float, generator, training: bool, shape=None):
     """flax ``Dropout``: keep with probability 1 - rate, scale the kept by
     1/(1 - rate); the mask is drawn from ``generator`` (none in eval mode
-    or at rate 0)."""
+    or at rate 0). ``shape``: a smaller mask shape that broadcasts over
+    ``x`` (one mask shared over the leading dimensions)."""
     g = dropout_generator(generator, rate, training)
     if g is None:
         return x
-    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
+    keep = torch.rand(x.shape if shape is None else shape, generator=g,
+                      device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def dense(x, layer: nn.Linear, dtype):
+    """flax ``Dense(dtype=dtype)``: input, kernel and bias cast to the
+    compute dtype."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
 class NumericalMLP(nn.Module):

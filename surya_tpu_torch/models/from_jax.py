@@ -17,6 +17,12 @@ The port's module names follow the flax tree, so the mapping is by leaf:
   ``h{g}`` kernels with biases, g in i, f, g, o) → its ``weight_ih``
   (4H, D), ``weight_hh`` (4H, H) and ``bias`` (4H), the gates stacked in
   that order (``models/temporal/recurrent.py``).
+- flax ``MultiHeadDotProductAttention`` leaves (modules ``query``, ``key``,
+  ``value``, ``out``): the per-head kernels (d, heads, d/heads) and
+  (heads, d/heads, d) → the (d, d) ``weight`` of an ``nn.Linear``, the
+  biases (heads, d/heads) → (d,) (``models/backbones/vit.py``).
+- bare parameters (``cls_token``, ``pos_embed``, ``token_type_embed``)
+  and LayerNorm ``scale``/``bias`` → the same name / ``weight``/``bias``.
 
 Inputs are numpy arrays (or anything ``np.asarray`` takes), so nothing of
 JAX is needed: :func:`load_npz_variables` rebuilds the tree from an
@@ -42,6 +48,7 @@ def _flatten(tree, prefix=()):
 
 
 _TO_OUT_IN = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+_ATTENTION = ("query", "key", "value", "out")
 _GATES = "ifgo"
 
 
@@ -73,6 +80,10 @@ def from_jax_variables(variables) -> dict[str, torch.Tensor]:
                 node.setdefault(mods[cell + 1], {})[leaf] = value
                 continue
             a = np.array(value, np.float32)   # a writable copy
+            if mods and mods[-1] in _ATTENTION:   # heads folded into d
+                a = (a.reshape(-1) if leaf != "kernel" else
+                     a.reshape(-1, a.shape[-1]) if mods[-1] == "out" else
+                     a.reshape(a.shape[0], -1))
             if leaf == "kernel":
                 a = a.transpose(_TO_OUT_IN[a.ndim])
                 name = "weight"

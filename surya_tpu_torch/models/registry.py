@@ -1,14 +1,13 @@
 """Model registry — the single ``get_model`` factory, mirroring
-``surya_tpu/models/registry.py``. Every spatial family is ported, and the
-temporal ``cnn_lstm``, ``ji_3dcnn`` and ``quadtree_3d``; the other temporal
-families raise ``NotImplementedError`` naming the ROADMAP item that ports
-them (A9b).
+``surya_tpu/models/registry.py``: every family of the JAX registry, spatial
+and temporal. FACT's parallel variants (``moe_experts > 0``) raise
+``NotImplementedError`` naming ROADMAP A11.
 
 As in JAX, ``cfg.dropout`` (None: the family's own default) reaches the
-quadtree and the three temporal families only: the hierarchical and
-standard families keep their reference dropout of 0.5. The temporal
-families' numerical inputs are sized by ``cfg.num_features`` (flax infers
-them from the data)."""
+quadtree and the temporal families only: the hierarchical and standard
+families keep their reference dropout of 0.5. The temporal families'
+numerical inputs are sized by ``cfg.num_features`` (flax infers them from
+the data)."""
 
 from __future__ import annotations
 
@@ -91,8 +90,38 @@ def _quadtree_3d(cfg: ModelConfig, common: dict):
                          conv3d_as_2d=cfg.conv3d_as_2d, **_opt(cfg))
 
 
-# temporal families of the JAX registry still to port
-_NOT_PORTED = frozenset({"resnet3d_video", "hybrid_quadtree_3d", "fact"})
+def _resnet3d_video(cfg: ModelConfig, common: dict):
+    from surya_tpu_torch.models.temporal.resnet3d_video import ResNet3DVideo
+
+    return ResNet3DVideo(num_classes=cfg.num_classes, dtype=common["dtype"],
+                         num_features=cfg.num_features,
+                         freeze_backbone=cfg.freeze_backbone, **_opt(cfg))
+
+
+def _hybrid_quadtree_3d(cfg: ModelConfig, common: dict):
+    from surya_tpu_torch.models.temporal.resnet3d_video import (
+        HybridQuadtree3DCNN,
+    )
+
+    return HybridQuadtree3DCNN(num_classes=cfg.num_classes, mode=cfg.mode,
+                               dtype=common["dtype"],
+                               num_features=cfg.num_features,
+                               freeze_backbone=cfg.freeze_backbone,
+                               **_opt(cfg))
+
+
+def _fact(cfg: ModelConfig, common: dict):
+    from surya_tpu_torch.models.temporal.fact import FactModel
+
+    return FactModel(num_classes=cfg.num_classes, seq_len=cfg.seq_len,
+                     num_layers=cfg.fusion_layers,
+                     num_heads=cfg.fusion_heads, embed_dim=cfg.fusion_dim,
+                     dtype=common["dtype"],
+                     freeze_backbone=cfg.freeze_backbone,
+                     moe_experts=cfg.moe_experts, moe_top_k=cfg.moe_top_k,
+                     num_features=cfg.num_features,
+                     image_size=common["image_size"], **_opt(cfg))
+
 
 _REGISTRY = {"quadtree": _quadtree,
              "hierarchical_quadtree": _hierarchical,
@@ -100,7 +129,8 @@ _REGISTRY = {"quadtree": _quadtree,
              "standard_resnet": _standard_resnet,
              "standard_multimodal": _standard_multimodal,
              "cnn_lstm": _cnn_lstm, "ji_3dcnn": _ji_3dcnn,
-             "quadtree_3d": _quadtree_3d}
+             "quadtree_3d": _quadtree_3d, "resnet3d_video": _resnet3d_video,
+             "hybrid_quadtree_3d": _hybrid_quadtree_3d, "fact": _fact}
 
 
 def list_models() -> list[str]:
@@ -111,10 +141,6 @@ def get_model(cfg: ModelConfig, image_size: int = 224,
               seed: int = 0) -> torch.nn.Module:
     """Build a model from a ModelConfig, initialised as JAX initialises
     it (same distributions) from a torch Generator seeded with ``seed``."""
-    if cfg.name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {cfg.name!r} is not ported yet: ROADMAP A9b (the "
-            "r3d_18 and ViT temporal families)")
     if cfg.name not in _REGISTRY:
         raise ValueError(
             f"unknown model {cfg.name!r}; available: {list_models()}")

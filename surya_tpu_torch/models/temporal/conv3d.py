@@ -33,7 +33,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from surya_tpu_torch.models.backbones.resnet import BatchNorm, lecun_normal_
+from surya_tpu_torch.models.backbones import resnet3d
+from surya_tpu_torch.models.backbones.resnet import BatchNorm
+from surya_tpu_torch.models.backbones.resnet3d import (
+    global_avg_pool_3d,
+    ndhwc_to_ncdhw,
+)
 from surya_tpu_torch.models.common import (
     FusionClassifier,
     flax_dropout,
@@ -44,34 +49,18 @@ from surya_tpu_torch.models.temporal.recurrent import StackedLSTM, last_step
 QT3D_MODES = ("fusion", "image_only")
 
 
-class Conv3d(nn.Module):
+class Conv3d(resnet3d.Conv3d):
     """k = (3,3,3), padding 1 on every side, with a bias: flax ``nn.Conv``
     or ``Conv3dAs2D``, which compute the same function. ``as_2d`` is stored
     and does not change the computation. Maps NCDHW → NCDHW."""
 
     def __init__(self, cin: int, cout: int, as_2d: bool = False):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3, 3))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        super().__init__(cin, cout, 3, 1, 1, bias=True)
         self.as_2d = as_2d
-
-    def reset_parameters(self, generator=None):
-        lecun_normal_(self.weight, self.weight[0].numel(), generator)
-        with torch.no_grad():
-            self.bias.zero_()
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv3d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        padding=1)
 
 
 def _pool3d(x, window):
     return F.max_pool3d(x, window, window)
-
-
-def _gap(x: torch.Tensor, dtype) -> torch.Tensor:
-    """NCDHW → (B, C): an f32 mean rounded to ``dtype``."""
-    return x.float().mean(dim=(2, 3, 4)).to(dtype)
 
 
 def _check_clip(name: str, t: int, least: int) -> None:
@@ -109,12 +98,6 @@ class _Conv3dNet(nn.Module):
             elif isinstance(m, StackedLSTM):
                 m.reset_parameters(generator)
 
-    def _input(self, image_sequence):
-        """NDHWC clip → the NCDHW view of a channels_last_3d tensor in the
-        compute dtype."""
-        x = image_sequence.to(self.dtype).contiguous()
-        return x.permute(0, 4, 1, 2, 3)
-
 
 class Ji3DCNN(_Conv3dNet):
     def __init__(self, num_classes: int = 8, dropout: float = 0.5,
@@ -134,10 +117,10 @@ class Ji3DCNN(_Conv3dNet):
         """image_sequence (B,T,H,W,3) NDHWC, numerical (B,T,F) → (B, C)
         f32 logits."""
         _check_clip("Ji3DCNN", image_sequence.shape[1], 2)
-        x = self._input(image_sequence)
+        x = ndhwc_to_ncdhw(image_sequence, self.dtype)
         x = _pool3d(self.block("block1", x), (1, 2, 2))
         x = _pool3d(self.block("block2", x), (2, 2, 2))
-        v = _gap(self.block("block3", x), self.dtype)             # (B, 128)
+        v = global_avg_pool_3d(self.block("block3", x), self.dtype)  # (B, 128)
         n = last_step(self.numerical_lstm(numerical_sequence, generator))
         fused = torch.cat([v, n.to(self.dtype)], dim=-1)          # (B, 192)
         return self.classifier(fused, generator)
@@ -169,11 +152,12 @@ class Quadtree3DCNN(_Conv3dNet):
                 numerical_sequence: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         _check_clip("Quadtree3DCNN", image_sequence.shape[1], 4)
-        x = self._input(image_sequence)
+        x = ndhwc_to_ncdhw(image_sequence, self.dtype)
         for name, window in (("block1", (1, 2, 2)), ("block2", (2, 2, 2)),
                              ("block3", (2, 2, 2)), ("block4", (1, 2, 2))):
             x = _pool3d(self.block(name, x), window)
-        fused = _gap(self.block("final", x), self.dtype)          # (B, 1024)
+        fused = global_avg_pool_3d(self.block("final", x),
+                                   self.dtype)                  # (B, 1024)
         if self.mode == "fusion":
             n = last_step(self.numerical_lstm(numerical_sequence, generator))
             dt = self.dtype

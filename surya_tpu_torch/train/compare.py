@@ -15,6 +15,7 @@ from surya_tpu_torch.core.checkpoint import load_checkpoint_variables
 from surya_tpu_torch.core.config import Config
 from surya_tpu_torch.core.metrics import r2_score
 from surya_tpu_torch.models import get_model
+from surya_tpu_torch.models.backbones import trunk_channels_last
 from surya_tpu_torch.ops import resolve_device
 from surya_tpu_torch.train.loop import evaluate
 from surya_tpu_torch.train.steps import make_eval_step
@@ -27,8 +28,7 @@ def evaluate_checkpoint(cfg: Config, state_dict, data, split: str = "valid",
     device = resolve_device(device)
     model = get_model(cfg.model, image_size=cfg.data.image_size)
     model.load_state_dict(state_dict, strict=True)
-    if hasattr(model, "trunk"):   # cuDNN convs in NHWC, as in training
-        model.trunk.to(memory_format=torch.channels_last)
+    trunk_channels_last(model)   # as in training
     eval_step = make_eval_step(model.to(device), cfg.model.num_classes,
                                cfg.train.label_smoothing)
     tf = getattr(data, "device_transform", None)

@@ -49,6 +49,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from surya_tpu_torch.core.config import Config
+from surya_tpu_torch.models.backbones import trunk_channels_last
 from surya_tpu_torch.models.losses import (
     cross_entropy,
     cross_entropy_per_sample,
@@ -136,8 +137,7 @@ def create_train_state(model: torch.nn.Module, cfg: Config, rng=None,
     (default ``cfg.train.seed``)."""
     device = resolve_device(device)
     model = model.to(device)
-    if hasattr(model, "trunk"):   # cuDNN convs in NHWC, no re-layout
-        model.trunk.to(memory_format=torch.channels_last)
+    trunk_channels_last(model)   # cuDNN convs without a re-layout
     tx = make_optimizer(cfg, model)
     generator = torch.Generator(device=device)
     generator.manual_seed(cfg.train.seed if rng is None else int(rng))

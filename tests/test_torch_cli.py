@@ -118,6 +118,26 @@ def test_train_then_eval_a_temporal_preset(tmp_path, capsys):
                                rtol=1e-6)
 
 
+def test_train_fact_at_a_tiny_width(tmp_path, capsys):
+    """``train --preset fact --synthetic`` at a tiny fusion width (48: the
+    ViT's 12 heads and the fusion's 8 divide it; the ViT keeps its 12
+    blocks) takes its step on the CPU, and ``eval`` reads the checkpoint
+    back."""
+    out = str(tmp_path / "run")
+    flags = ["--preset", "fact", "--synthetic", "--data.synthetic_size=8",
+             "--data.batch_size=8", "--model.fusion_dim=48",
+             "--model.fusion_layers=1", *TINY_CLIPS]
+    assert main(["train", "--out", out, "--train.epochs=1", *flags]) == 0
+    summary = _last_json(capsys)
+    assert summary["test"]["count"] == 8
+    rec = [r for r in _records(os.path.join(out, "metrics.jsonl"))
+           if "train_loss" in r]
+    assert rec[0]["steps"] == 1 and np.isfinite(rec[0]["train_loss"])
+    assert main(["eval", os.path.join(out, "ckpt"), *flags]) == 0
+    np.testing.assert_allclose(_last_json(capsys)["loss"],
+                               summary["test"]["loss"], rtol=1e-6)
+
+
 def test_pack_sequences_then_train_on_the_pack(tmp_path, capsys):
     """``pack --sequences`` of a temporal replay window tree at T = 5,
     then ``quadtree-3d`` and ``cnn-lstm`` (T = 4 from the same windows,
@@ -193,9 +213,10 @@ def test_cli_refusals(tmp_path, capsys):
     assert len(capsys.readouterr().out.strip().splitlines()) == 16
     assert main(["frobnicate"]) == 1
     assert main([]) == 1
-    with pytest.raises(NotImplementedError, match="A9b"):
+    with pytest.raises(NotImplementedError, match="A11"):
         main(["train", "--preset", "fact", "--synthetic", "--out",
-              str(tmp_path / "t"), "--device", "cpu", *TINY[:3]])
+              str(tmp_path / "t"), "--model.moe_experts=2", "--device",
+              "cpu", *TINY[:3]])
     with pytest.raises(NotImplementedError, match="A11"):
         main(["train", "--synthetic", "--out", str(tmp_path / "m"),
               "--mesh.data=2", *TINY])

@@ -74,7 +74,9 @@ def test_quadrant_kernel_matches_plain(cuda, b, h, cin, cout, dtype, tol):
                                      (257, 512, 2688, 3),
                                      # the temporal families' heads
                                      (32, 256, 128, 8), (8, 192, 128, 8),
-                                     (8, 1536, 768, 8), (8, 1024, 512, 8)])
+                                     (8, 1536, 768, 8), (8, 1024, 512, 8),
+                                     # the r3d_18 families' heads
+                                     (8, 512, 256, 8), (8, 768, 384, 8)])
 def test_fusion_head_kernel_matches_plain(cuda, b, d, h, c, dtype, tol):
     g = torch.Generator(device=cuda).manual_seed(1)
     x = (torch.randn(b, d, device=cuda, generator=g) * 0.1).to(dtype)
@@ -170,7 +172,8 @@ def test_quadrant_training_form_bf16(cuda):
                                             (torch.bfloat16, 2e-2, 5e-2)])
 @pytest.mark.parametrize("b,d,h,c", [(64, 256, 512, 8), (70, 264, 40, 5),
                                      (1, 5376, 2688, 8), (257, 512, 2688, 8),
-                                     (8, 1536, 768, 8), (32, 256, 128, 8)])
+                                     (8, 1536, 768, 8), (32, 256, 128, 8),
+                                     (8, 512, 256, 8), (8, 768, 384, 8)])
 def test_fusion_head_training_form_matches_plain(cuda, b, d, h, c, dtype,
                                                  tol, gtol):
     """Rate 0.5: the kernel's mask is the Philox reference's, the dropped
@@ -402,14 +405,22 @@ def test_spatial_family_on_card_matches_cpu(cuda, name, backbone, mode):
 @pytest.mark.parametrize("name,mode,t", [("cnn_lstm", "fusion", 4),
                                         ("ji_3dcnn", "fusion", 5),
                                         ("quadtree_3d", "fusion", 5),
-                                        ("quadtree_3d", "image_only", 4)])
+                                        ("quadtree_3d", "image_only", 4),
+                                        ("resnet3d_video", "fusion", 5),
+                                        ("hybrid_quadtree_3d", "fusion", 5),
+                                        ("hybrid_quadtree_3d", "image_only",
+                                         4),
+                                        ("fact", "fusion", 4)])
 def test_temporal_family_on_card_matches_cpu(cuda, name, mode, t):
     """The temporal families' f32 logits on the card against the CPU
-    (32 px clips, the same weights), each forward one head launch; and a
-    bf16 train-mode forward with dropout draws on the card's generator."""
-    cfg = ModelConfig(name=name, mode=mode, num_classes=5,
-                      compute_dtype="float32")
-    model = get_model(cfg)
+    (32 px clips, the same weights), each forward one head launch (none
+    for FACT, whose head is LN + Dense); and a bf16 train-mode forward
+    with dropout draws on the card's generator. FACT at fusion width 96,
+    which its 12 ViT heads and 8 fusion heads divide."""
+    small = dict(fusion_dim=96, fusion_layers=2) if name == "fact" else {}
+    cfg = ModelConfig(name=name, mode=mode, num_classes=5, seq_len=t,
+                      compute_dtype="float32", **small)
+    model = get_model(cfg, image_size=32)
     rng = np.random.default_rng(0)
     clips = torch.from_numpy(rng.random((2, t, 32, 32, 3)).astype(
         np.float32))
@@ -419,9 +430,10 @@ def test_temporal_family_on_card_matches_cpu(cuda, name, mode, t):
         model = model.to(cuda)
         before = thead.launches
         got = model(clips.to(cuda), feats.to(cuda))
-    assert thead.launches == before + 1
+    assert thead.launches == before + (name != "fact")
     assert _rel_err(got.cpu(), want) <= 1e-4
-    bf = get_model(ModelConfig(name=name, mode=mode, num_classes=5)).to(cuda)
+    bf = get_model(ModelConfig(name=name, mode=mode, num_classes=5,
+                               seq_len=t, **small), image_size=32).to(cuda)
     out = bf.train()(clips.to(cuda), feats.to(cuda),
                      torch.Generator(device=cuda).manual_seed(0))
     assert out.dtype == torch.float32 and torch.isfinite(out).all()

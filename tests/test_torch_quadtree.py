@@ -67,19 +67,20 @@ def test_classifier_width_at_224(mode, hidden):
 
 
 def test_registry_names_roadmap_items():
-    """Every spatial family builds (the comparative one over each backbone,
-    and the space-to-depth stem), and the temporal ``cnn_lstm``,
-    ``ji_3dcnn`` and ``quadtree_3d``; the other temporal families raise,
-    naming ROADMAP A9b; an unknown name is a ValueError."""
+    """Every family of the JAX registry builds: the spatial ones (the
+    comparative one over each backbone, and the space-to-depth stem) and
+    all six temporal ones; FACT's MoE variant raises, naming ROADMAP A11;
+    an unknown name is a ValueError."""
     from surya_tpu_torch.models import TEMPORAL_MODELS, list_models
 
-    assert list_models() == ["attention_hierarchical", "cnn_lstm",
-                             "hierarchical_quadtree", "ji_3dcnn", "quadtree",
-                             "quadtree_3d", "standard_multimodal",
+    assert list_models() == ["attention_hierarchical", "cnn_lstm", "fact",
+                             "hierarchical_quadtree", "hybrid_quadtree_3d",
+                             "ji_3dcnn", "quadtree", "quadtree_3d",
+                             "resnet3d_video", "standard_multimodal",
                              "standard_resnet"]
-    for name in TEMPORAL_MODELS - set(list_models()):
-        with pytest.raises(NotImplementedError, match="A9b"):
-            get_model(ModelConfig(name=name))
+    assert TEMPORAL_MODELS < set(list_models())
+    with pytest.raises(NotImplementedError, match="A11"):
+        get_model(ModelConfig(name="fact", moe_experts=2))
     for name in list_models():
         get_model(ModelConfig(name=name, compute_dtype="float32"),
                   image_size=64)

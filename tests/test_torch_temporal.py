@@ -189,11 +189,18 @@ def test_short_clips_raise(name, least):
         jm.init(jax.random.key(0), jnp.zeros(x.shape), jnp.zeros(f.shape))
 
 
-# (preset, mode) → the head's (D, H) and dropout at the published widths
+# (preset, mode) → the head's (D, H) and dropout at the published widths;
+# for FACT, which has no fused head, a fusion layer's FFN (d, 4d) and its
+# dropout
 WIDTHS = {("cnn-lstm", "fusion"): (256, 128, 0.5),
           ("ji-3dcnn", "fusion"): (192, 128, 0.5),
           ("quadtree-3d", "fusion"): (1536, 768, 0.6),
-          ("quadtree-3d", "image_only"): (1024, 512, 0.6)}
+          ("quadtree-3d", "image_only"): (1024, 512, 0.6),
+          ("resnet3d-video", "fusion"): (512, 256, 0.5),
+          ("hybrid-quadtree-3d", "fusion"): (768, 384, 0.6),
+          ("hybrid-quadtree-3d", "image_only"): (512, 256, 0.6),
+          ("fact", "fusion"): (768, 3072, 0.1),
+          ("fact-bs16", "fusion"): (768, 3072, 0.1)}
 
 
 @pytest.mark.parametrize("key", list(WIDTHS))
@@ -202,15 +209,28 @@ def test_registry_builds_the_published_widths(key):
     cfg = get_preset(preset).override({"model.mode": mode})
     model = get_model(cfg.model)
     d, h, rate = WIDTHS[key]
-    assert tuple(model.classifier.fc1.weight.shape) == (h, d)
-    assert model.classifier.dropout == rate
-    assert d % 8 == 0   # the head kernel's alignment
-    if cfg.model.name == "quadtree_3d" and mode == "fusion":
+    fact = cfg.model.name == "fact"
+    layer = model.fusion0 if fact else model.classifier
+    assert tuple((layer.ff1 if fact else layer.fc1).weight.shape) == (h, d)
+    assert layer.dropout == rate
+    assert fact or d % 8 == 0   # the head kernel's alignment
+    if cfg.model.name in ("quadtree_3d", "hybrid_quadtree_3d") and (
+            mode == "fusion"):
         lstm = model.numerical_lstm
         assert lstm.num_layers == 2 and lstm.dropout == 0.6
         assert lstm.OptimizedLSTMCell_0.weight_hh.shape == (4 * 188, 188)
-    dropped = get_model(dataclasses.replace(cfg.model, dropout=0.1))
-    assert dropped.classifier.dropout == 0.1
+    if cfg.model.name in ("resnet3d_video", "hybrid_quadtree_3d"):
+        assert cfg.model.freeze_backbone   # layer4 and the head train
+        assert model.trunk.train_stages == {"layer4"}
+    if fact:
+        assert cfg.model.freeze_backbone and model.fusion0.attn.dropout == 0.1
+        assert cfg.data.batch_size == (16 if preset == "fact-bs16" else 32)
+        # the dropout override at a small width: 96 divides by 12 and 8
+        cfg = cfg.override({"model.fusion_dim": "96"})
+    dropped = get_model(dataclasses.replace(cfg.model, dropout=0.2),
+                        image_size=32 if fact else 224)
+    dropped = dropped.fusion0 if fact else dropped.classifier
+    assert dropped.dropout == 0.2
 
 
 def _cnn_lstm_step(freeze):
