@@ -57,6 +57,15 @@ processes that run it):
   ``eval`` for ``quadtree-3d``, ``cnn-lstm``, ``hybrid-quadtree-3d`` and
   ``fact``; the head kernel timed at the six temporal widths in both
   forms.
+- **pose**: ``python -m surya_tpu_torch pose-train`` at its published
+  size (600 steps, batch 64, 256 px, width 32) in a child, its holdout
+  PCK@0.10 held to 0.99; the JAX package's trained checkpoint
+  (``runs/pose_landmark``) through the port's msgpack codec, f32
+  landmarks on the card against the CPU on 128 renders, bf16
+  ``process_batch`` frames/s at batch 64; ``video``'s frame-batch core on
+  64 class-conditional renders at batch 16 (the neural extractor,
+  ``extract_features_47``, ``quadtree-fusion`` at 224 px from seed 0):
+  exactly 4 quadrant and 4 head launches, f32 probabilities card vs CPU.
 
 It times kernels, serving and the train step with CUDA events; each
 main-path kernel in turns with its library yardstick, after the same L2
@@ -1106,6 +1115,8 @@ def stem_probe(stem_bn, card, eps=1e-5):
             row["flops"] = 2 * cmap.numel()
             row["bound_ms"] = row["bytes"] / PEAK_BYTES_S * 1e3
             row["bound_by"] = "bytes"
+            # timed apart, not in turns: the ratio of the two medians
+            row["ratio_vs_library"] = row["ms"] / row["library_ms"]
         ab = {
             "bn_relu_kernels_ms": time_ms(
                 lambda: stem_bn.fused_bn_relu_train(cmap, scale, bias, eps)),
@@ -2166,6 +2177,226 @@ def temporal_phase(quadrant, fusion_head, stem_bn, card):
     return totals, timed
 
 
+POSE_CKPT = os.path.join(REPO, "runs", "pose_landmark", "pose_landmark.msgpack")
+POSE_WIDTH, POSE_SIZE, POSE_HOLDOUT = 32, 256, 128   # the checkpoint's
+POSE_FRAMES, POSE_BATCH, POSE_CLASSES = 64, 16, 8
+POSE_METRICS = ("pck05", "pck10", "mean_err_px", "z_mae", "vis_acc")
+
+
+def bgr_frames(images):
+    """(N, S, S, 3) f32 [0, 1] on the card → N BGR uint8 host frames, as a
+    video decoder hands them over."""
+    u8 = (images * 255.0).round().to(torch.uint8).flip(-1).cpu().numpy()
+    return list(u8)
+
+
+def pose_train_cli(card):
+    """``python -m surya_tpu_torch pose-train`` at its published defaults
+    (600 steps, batch 64, 256 px, width 32, lr 1e-3) in a child: the
+    holdout PCK@0.10 must reach 0.99; printed beside the JAX package's TPU
+    run (``runs/pose_landmark/summary.json``)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="surya_pose_")
+    try:
+        t0 = time.perf_counter()
+        _, summary = run_cli(["pose-train", "--out", root])
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    with open(os.path.join(REPO, "runs", "pose_landmark", "summary.json")) as f:
+        jax_run = json.load(f)
+    row = {"phase": "pose_train", "steps": summary["steps"],
+           "batch": summary["batch"], "image_size": summary["image_size"],
+           "width": summary["width"], "params": summary["params"],
+           "backend": summary["backend"], "cli_wall_s": wall,
+           "train_wall_s": summary["wall_s"],
+           "step_ms_median": summary["step_ms_median"],
+           **{k: summary[k] for k in POSE_METRICS},
+           "jax_tpu_run": {k: jax_run[k] for k in POSE_METRICS + (
+               "params", "backend")}, **card}
+    emit(row)
+    if summary["backend"] != "cuda" or not summary["pck10"] >= 0.99:
+        raise AssertionError(f"pose-train missed PCK@0.10 >= 0.99 on the "
+                             f"card: {row}")
+    return row
+
+
+def pose_checkpoint(card, reps=5):
+    """The JAX package's trained checkpoint through the port's codec and
+    bridge: f32 landmarks on the card against the CPU on a generator-seed-99
+    holdout of 128 renders (1e-4 of the largest), each side against an f64
+    forward on the card, the card's holdout metrics, and bf16
+    ``process_batch`` frames/s at batch 64."""
+    from surya_tpu_torch.data.synthetic_pose import make_pose_batch
+    from surya_tpu_torch.models.pose import landmark_net as ln
+    from surya_tpu_torch.models.pose.train import eval_metrics
+
+    state = ln.load_pose_params(POSE_CKPT)
+    holdout = make_pose_batch(torch.Generator("cuda").manual_seed(99),
+                              POSE_HOLDOUT, POSE_SIZE)
+    nets = {}
+    for dev in ("cuda", "cpu"):
+        net = ln.PoseLandmarkNet(width=POSE_WIDTH, dtype=torch.float32)
+        net.load_state_dict(state, strict=True)
+        nets[dev] = net.to(dev).eval()
+    # f64 on the card: how far f32's own rounding moves each side
+    f64 = ln.PoseLandmarkNet(width=POSE_WIDTH, dtype=torch.float64)
+    f64.load_state_dict(state, strict=True)
+    f64 = f64.to("cuda", torch.float64).eval()
+    with torch.inference_mode():
+        card_lm = nets["cuda"](holdout[0])["landmarks"].cpu()
+        cpu_lm = torch.cat([nets["cpu"](x)["landmarks"]
+                            for x in holdout[0].cpu().split(32)])
+        exact = f64(holdout[0].double())["landmarks"].cpu()
+        f32_metrics = {k: float(v) for k, v in
+                       eval_metrics(nets["cuda"], *holdout).items()}
+        bf16_net = ln.PoseLandmarkNet(width=POSE_WIDTH).cuda().eval()
+        bf16_net.load_state_dict(state, strict=True)
+        bf16_metrics = {k: float(v) for k, v in
+                        eval_metrics(bf16_net, *holdout).items()}
+    err = float((card_lm - cpu_lm).abs().max() / cpu_lm.abs().max())
+    parts = {"xy": slice(0, 2), "z": slice(2, 3), "vis": slice(3, 4)}
+
+    def abs_err(a, b):
+        return {k: float((a[..., sl].double() - b[..., sl]).abs().max())
+                for k, sl in parts.items()}
+
+    extractor = ln.load_pose_extractor(POSE_CKPT)          # bf16, the card
+    frames = bgr_frames(holdout[0][:POSE_FRAMES])
+    extractor.process_batch(frames)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extractor.process_batch(frames)
+        times.append(time.perf_counter() - t0)
+    row = {"phase": "pose_checkpoint", "checkpoint": os.path.relpath(
+               POSE_CKPT, REPO), "holdout": POSE_HOLDOUT,
+           "f32_card_vs_cpu_max_rel_err": err, "tol": 1e-4,
+           "f32_card_vs_cpu_abs_err": abs_err(card_lm, cpu_lm.double()),
+           "f32_card_vs_f64_card_abs_err": abs_err(card_lm, exact),
+           "f32_cpu_vs_f64_card_abs_err": abs_err(cpu_lm, exact),
+           "card_f32": f32_metrics, "card_bf16": bf16_metrics,
+           "process_batch": {"batch": POSE_FRAMES, "dtype": "bfloat16",
+                             "frames_per_s_median":
+                                 POSE_FRAMES / statistics.median(times)},
+           **card}
+    emit(row)
+    if not err <= 1e-4:
+        raise AssertionError(f"pose net f32 card vs CPU: {err}")
+    return row
+
+
+def pose_video(quadrant, fusion_head, card, reps=3):
+    """``video``'s frame-batch core on 64 class-conditional renders (8
+    classes, 256 px, BGR uint8) at batch 16: the neural extractor on the
+    JAX checkpoint, ``extract_features_47`` and the ``quadtree-fusion``
+    classifier at 224 px (random weights from seed 0). The bf16 run
+    launches exactly 4 quadrant and 4 head kernels, both in the inference
+    form; then f32 probabilities on the card against the CPU (1e-4)."""
+    from surya_tpu_torch.core.config import get_preset
+    from surya_tpu_torch.data.synthetic_pose import (
+        class_swing_centers,
+        make_pose_class_batch,
+    )
+    from surya_tpu_torch.infer import video
+    from surya_tpu_torch.models import get_model
+    from surya_tpu_torch.models.pose import landmark_net as ln
+
+    cfg = get_preset("quadtree-fusion")
+    size = cfg.data.image_size
+    state = get_model(cfg.model, image_size=size, seed=0).state_dict()
+    labels = np.arange(POSE_FRAMES) % POSE_CLASSES
+    frames = bgr_frames(make_pose_class_batch(
+        torch.Generator("cuda").manual_seed(0), labels,
+        class_swing_centers(POSE_CLASSES), POSE_SIZE)[0])
+    names = [f"pose{i}" for i in range(POSE_CLASSES)]
+
+    def run(classify, extractor):
+        out = []
+        for lo in range(0, POSE_FRAMES, POSE_BATCH):
+            recs, _, det = video.classify_frame_batch(
+                classify, extractor, frames[lo:lo + POSE_BATCH], names,
+                size, start=lo)
+            out += [dict(r, detected=d) for r, d in zip(recs, det)]
+        return out
+
+    extractor = ln.load_pose_extractor(POSE_CKPT)
+    classify = video.make_frame_classifier(cfg.model, state, size)
+    reset_launches(quadrant, fusion_head)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records = run(classify, extractor)
+    first_s = time.perf_counter() - t0
+    launches = read_launches(quadrant, fusion_head)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(classify, extractor)
+        times.append(time.perf_counter() - t0)
+    if launches != {"quadrant": 4, "quadrant_train": 0, "fusion_head": 4,
+                    "fusion_head_train": 0}:
+        raise AssertionError(f"video core launches: {launches}")
+    assert len(records) == POSE_FRAMES and all(
+        0.0 < r["confidence"] <= 1.0 for r in records), records
+
+    cfg32 = dataclasses.replace(cfg.model, compute_dtype="float32")
+    probs = {}
+    for dev in ("cuda", "cpu"):
+        clf = video.make_frame_classifier(cfg32, state, size, device=dev)
+        seen = []
+
+        def recording(x, f, clf=clf, seen=seen):
+            p = clf.probs(x, f)
+            seen.append(p.cpu())
+            conf, pred = p.max(-1)
+            return pred, conf
+
+        recording.device = clf.device
+        ext = ln.load_pose_extractor(POSE_CKPT, device=dev,
+                                     dtype=torch.float32)
+        recs = run(recording, ext)
+        probs[dev] = (torch.cat(seen), recs)
+    err = float((probs["cuda"][0] - probs["cpu"][0]).abs().max())
+    same_labels = [r["label"] for r in probs["cuda"][1]] == [
+        r["label"] for r in probs["cpu"][1]]
+    row = {"phase": "pose_video", "frames": POSE_FRAMES,
+           "batch": POSE_BATCH, "classes": POSE_CLASSES,
+           "frame_size": POSE_SIZE, "classifier_size": size,
+           "launches": launches,
+           "detected": sum(r["detected"] for r in records),
+           "first_run_s": first_s,
+           "bf16_frames_per_s_median": POSE_FRAMES / statistics.median(times),
+           "f32_card_vs_cpu_max_abs_prob_err": err, "tol": 1e-4,
+           "f32_labels_equal": same_labels, **card}
+    emit(row)
+    if not (err <= 1e-4 and same_labels):
+        raise AssertionError(f"video core f32 card vs CPU: {row}")
+    return launches
+
+
+def pose_phase(quadrant, fusion_head, card):
+    """The feature, prep and pose tier: ``pose-train`` through the CLI at
+    its published size, the JAX package's checkpoint on the card, and
+    ``video``'s frame-batch core through the flagship's two kernels. →
+    the video core's launches per kernel form."""
+    t0 = time.perf_counter()
+    train = pose_train_cli(card)
+    torch.cuda.empty_cache()
+    ckpt = pose_checkpoint(card)
+    torch.cuda.empty_cache()
+    launches = pose_video(quadrant, fusion_head, card)
+    emit({"phase": "pose_summary", "seconds": time.perf_counter() - t0,
+          "pose_train_pck10": train["pck10"],
+          "pose_train_step_ms_median": train["step_ms_median"],
+          "checkpoint_f32_err": ckpt["f32_card_vs_cpu_max_rel_err"],
+          "launches": launches, **card})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2217,6 +2448,8 @@ def main() -> int:
            temporal_launches["fusion_head_train"]) < 1:
         raise AssertionError(f"a head form was never launched on the "
                              f"temporal path: {temporal_launches}")
+    torch.cuda.empty_cache()
+    pose_launches = pose_phase(quadrant, fusion_head, card)
 
     # name → (source, replaces, launches on its path, max |kernel - plain|
     # at the shape that path gives it, bf16)
@@ -2247,11 +2480,13 @@ def main() -> int:
         "quadrant": {"serve": serve_launches["quadrant"],
                      "loop": loop_launches["quadrant"]["inference"],
                      "spatial": spatial_launches["quadrant"],
-                     "temporal": temporal_launches["quadrant"]},
+                     "temporal": temporal_launches["quadrant"],
+                     "pose": pose_launches["quadrant"]},
         "fusion_head": {"serve": serve_launches["fusion_head"],
                         "loop": loop_launches["fusion_head"]["inference"],
                         "spatial": spatial_launches["fusion_head"],
-                        "temporal": temporal_launches["fusion_head"]},
+                        "temporal": temporal_launches["fusion_head"],
+                        "pose": pose_launches["fusion_head"]},
         "quadrant_train": {"train": train_launches["quadrant"],
                            "loop": loop_launches["quadrant"]["training"],
                            "spatial": spatial_launches["quadrant_train"],

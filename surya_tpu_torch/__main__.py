@@ -11,11 +11,20 @@
   python -m surya_tpu_torch pack --sequences --root SEQ --out DIR [--seq-len 5]
   python -m surya_tpu_torch serve CKPT [--preset P] [--port 8577] [--classes names.json]
   python -m surya_tpu_torch cam CKPT [--preset P] [--target layer4] [--out DIR] [--limit N]
+  python -m surya_tpu_torch pose-train [--steps 600] [--batch 64] [--image-size 256] \
+      [--width 32] [--lr 1e-3] [--out DIR] [--seed 0] [--occlude-p 0] [--mirror-p 0]
+  python -m surya_tpu_torch video CKPT VIDEO.mp4 --classes names.json \
+      [--out annotated.mp4] [--pose-ckpt pose.msgpack] [--display]
+  python -m surya_tpu_torch ingest pt-windows PT_ROOT OUT_ROOT
+  python -m surya_tpu_torch ingest clip-csv PROCESSED_ROOT OUT_ROOT
 
 CKPT is a checkpoint directory written by ``train`` (its latest step), one
 of its ``<step>.pt`` files, a ``.pt`` of the port's ``state_dict`` or a
-``.npz`` of a JAX variable tree (``/``-joined keys). Everything runs on the
-card; ``--device cpu`` runs the plain PyTorch path instead (for tests).
+``.npz`` of a JAX variable tree (``/``-joined keys). ``pose-train`` writes
+the pose net's msgpack artifact (the JAX package's format), which
+``video --pose-ckpt`` reads. Everything runs on the card; ``--device cpu``
+runs the plain PyTorch path instead (for tests); ``ingest`` is host file
+conversion.
 Dotted ``--section.field=value`` flags override the preset.
 """
 
@@ -290,6 +299,42 @@ def cmd_pack(argv: list[str]) -> int:
     return 0
 
 
+def cmd_pose_train(argv: list[str]) -> int:
+    """Train the pose-landmark net (the MediaPipe stand-in) on the
+    synthetic generator; the artifact feeds ``video --pose-ckpt``. Exits 1
+    when the holdout PCK@0.10 is 0."""
+    import argparse
+
+    from surya_tpu_torch.models.pose import train_pose_landmark
+
+    ap = argparse.ArgumentParser(prog="surya_tpu_torch pose-train")
+    ap.add_argument("--steps", type=int, default=600)
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--image-size", type=int, default=256,
+                    help="training resolution (divisible by 16); "
+                         "stored in the checkpoint")
+    ap.add_argument("--width", type=int, default=32,
+                    help="base channel width (divisible by 8)")
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--out", default="runs/pose_landmark")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--occlude-p", type=float, default=0.0,
+                    help="per-sample random-patch occlusion probability "
+                         "(on-device augmentation)")
+    ap.add_argument("--mirror-p", type=float, default=0.0,
+                    help="per-sample horizontal-mirror probability "
+                         "(chirality augmentation)")
+    ap.add_argument("--device", default=None,
+                    help="default: the card; 'cpu' runs on the CPU")
+    args = ap.parse_args(argv)
+    summary = train_pose_landmark(
+        steps=args.steps, batch=args.batch, image_size=args.image_size,
+        width=args.width, out_dir=args.out, peak_lr=args.lr,
+        seed=args.seed, occlude_p=args.occlude_p, mirror_p=args.mirror_p,
+        device=args.device)
+    return 0 if summary["pck10"] > 0 else 1
+
+
 def cmd_compare(argv: list[str]) -> int:
     """Evaluate N checkpoints on one split: accuracy, weighted P/R/F1 and
     R² per model, plus confusion matrices and a bar chart with --out.
@@ -371,13 +416,22 @@ def main(argv: list[str] | None = None) -> int:
     if cmd == "list-presets":
         return cmd_list_presets()
     commands = {"train": cmd_train, "eval": cmd_eval, "pack": cmd_pack,
-                "compare": cmd_compare, "cam": cmd_cam}
+                "compare": cmd_compare, "cam": cmd_cam,
+                "pose-train": cmd_pose_train}
     if cmd in commands:
         return commands[cmd](rest)
     if cmd == "serve":
         from surya_tpu_torch.infer.http_server import main as serve_main
 
         return serve_main(rest)
+    if cmd == "video":
+        from surya_tpu_torch.infer.video import main as video_main
+
+        return video_main(rest)
+    if cmd == "ingest":
+        from surya_tpu_torch.data.prep.ingest import main as ingest_main
+
+        return ingest_main(rest)
     print(f"unknown command {cmd!r}\n{__doc__}")
     return 1
 

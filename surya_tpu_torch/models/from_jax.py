@@ -23,6 +23,10 @@ The port's module names follow the flax tree, so the mapping is by leaf:
   biases (heads, d/heads) → (d,) (``models/backbones/vit.py``).
 - bare parameters (``cls_token``, ``pos_embed``, ``token_type_embed``)
   and LayerNorm ``scale``/``bias`` → the same name / ``weight``/``bias``.
+- the pose net (``models/pose/landmark_net.py``): GroupNorm ``scale``/
+  ``bias`` → ``weight``/``bias``, its bias-free convs, the 1×1 ``heatmap``
+  conv with its bias, ``head_dense`` and ``head_out``, by the same rules;
+  :func:`to_jax_params` maps such a params-only state_dict back.
 
 Inputs are numpy arrays (or anything ``np.asarray`` takes), so nothing of
 JAX is needed: :func:`load_npz_variables` rebuilds the tree from an
@@ -94,6 +98,26 @@ def from_jax_variables(variables) -> dict[str, torch.Tensor]:
         for mods, cell in cells.items():
             _lstm_cell(".".join(mods), cell, out)
     return out
+
+
+def to_jax_params(state_dict) -> dict:
+    """The inverse of :func:`from_jax_variables` for a params-only tree of
+    convs, dense layers and norms (no running statistics): a 4-D
+    ``weight`` → conv ``kernel`` (H, W, I, O), a 2-D one → Dense ``kernel``
+    (in, out), a 1-D one → norm ``scale``; ``bias`` stays. → a nested dict
+    of f32 numpy arrays."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        *mods, leaf = key.split(".")
+        a = value.detach().float().cpu().numpy()
+        if leaf == "weight":
+            leaf = "kernel" if a.ndim > 1 else "scale"
+            a = a.transpose({4: (2, 3, 1, 0), 2: (1, 0), 1: (0,)}[a.ndim])
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return tree
 
 
 def load_npz_variables(path: str) -> dict:
