@@ -60,12 +60,14 @@ processes that run it):
 - **pose**: ``python -m surya_tpu_torch pose-train`` at its published
   size (600 steps, batch 64, 256 px, width 32) in a child, its holdout
   PCK@0.10 held to 0.99; the JAX package's trained checkpoint
-  (``runs/pose_landmark``) through the port's msgpack codec, f32
+  (``runs/pose_landmark``) through ``core/flax_msgpack.py``, f32
   landmarks on the card against the CPU on 128 renders, bf16
   ``process_batch`` frames/s at batch 64; ``video``'s frame-batch core on
   64 class-conditional renders at batch 16 (the neural extractor,
   ``extract_features_47``, ``quadtree-fusion`` at 224 px from seed 0):
-  exactly 4 quadrant and 4 head launches, f32 probabilities card vs CPU.
+  exactly 4 quadrant and 4 head launches, each of them held against its
+  plain version on the inputs it was given, and f32 probabilities card
+  vs CPU, end to end and on the card's staged images and features.
 
 It times kernels, serving and the train step with CUDA events; each
 main-path kernel in turns with its library yardstick, after the same L2
@@ -80,6 +82,7 @@ the repository around it; it imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import io
@@ -103,17 +106,18 @@ TRAIN_BATCH, TRAIN_STEPS = 256, 20
 
 # first: the serving path's; (4, 14, 1024, 128): a resnet50 trunk's
 # layer3; then the edges of the wgmma tilings: B in {1, 3, 256}, Cout 16,
-# 64 and 256, Cin 32 and 1024, H 8, 14 and 28 (quadrants of 4, 7, 14)
+# 64 and 256, Cin 32 and 1024, H 8, 14 and 28 (quadrants of 4, 7, 14);
+# last: the video core's (pose phase, B 16)
 QUADRANT_SHAPES = [(64, 14, 256, 128), (3, 28, 32, 16), (8, 8, 16, 8),
                    (4, 14, 1024, 128), (1, 14, 256, 128), (3, 8, 32, 16),
                    (256, 14, 256, 128), (2, 14, 256, 64), (2, 14, 256, 256),
-                   (2, 28, 1024, 64), (3, 14, 32, 16)]
+                   (2, 28, 1024, 64), (3, 14, 32, 16), (16, 14, 256, 128)]
 # first: the serving path's; then B in {1, 63, 100, 256, 257}, H a
 # multiple of the 128-unit tile or not (2688, 40), D off the 64-wide K
-# stage (264), C = 3
+# stage (264), C = 3; last: the video core's (pose phase, B 16)
 HEAD_SHAPES = [(64, 5376, 2688, 8), (5, 256, 128, 3), (1, 5376, 2688, 8),
                (63, 256, 128, 8), (100, 264, 40, 5), (256, 5376, 2688, 8),
-               (257, 512, 2688, 3)]
+               (257, 512, 2688, 3), (16, 5376, 2688, 8)]
 # the other spatial families' heads at 224 px (spatial phase): the
 # comparative ones over vgg16 (D 25,344: 396 K steps), resnet50,
 # mobilenet_v2 and densenet121, the hierarchical and attention ones,
@@ -2289,13 +2293,82 @@ def pose_checkpoint(card, reps=5):
     return row
 
 
+@contextlib.contextmanager
+def recording_kernels():
+    """Inside: every call of the two kernel wrappers from the flagship's
+    model is kept, with its arguments and output (launch counts as
+    before: the wrappers are called as they are). → {name: [(args,
+    kwargs, out)]}."""
+    from surya_tpu_torch.models import common
+    from surya_tpu_torch.models.spatial import quadtree
+
+    calls = {"quadrant": [], "fusion_head": []}
+
+    def keep(fn, seen):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            seen.append((args, kw, out))
+            return out
+        return call
+
+    originals = quadtree.quadrant_process, common.fusion_head
+    quadtree.quadrant_process = keep(originals[0], calls["quadrant"])
+    common.fusion_head = keep(originals[1], calls["fusion_head"])
+    try:
+        yield calls
+    finally:
+        quadtree.quadrant_process, common.fusion_head = originals
+
+
+def hold_recorded(calls, quadrant, fusion_head):
+    """Each kept kernel call against its plain version in f32 on the
+    same inputs (weights rounded to the input's dtype, as the kernel
+    reads them), to TOL of that dtype; every call must be the bf16
+    inference form on the card. → per kernel: calls, shape, dtype and
+    the largest errors."""
+    plain = {"quadrant": lambda x, w, b: quadrant.quadrant_process_plain(
+                 x.float(), w.to(x.dtype).float(), b.float()),
+             "fusion_head": lambda x, w1, b1, w2, b2:
+                 fusion_head.fusion_head_plain(
+                     x.float(), w1.to(x.dtype).float(), b1.float(),
+                     w2.to(x.dtype).float(), b2.float())}
+    held, failed = {}, []
+    with torch.inference_mode():
+        for name, seen in calls.items():
+            held[name] = _hold(name, seen, plain[name], failed)
+    batches = POSE_FRAMES // POSE_BATCH
+    if failed or not all(held[k]["calls"] == batches for k in held):
+        raise AssertionError(f"video core kernels vs plain: {held} {failed}")
+    return held
+
+
+def _hold(name, seen, plain, failed):
+    row = {"calls": len(seen), "max_abs_err": 0.0, "max_rel_err": 0.0}
+    for args, kw, out in seen:
+        x = args[0]
+        dname = str(x.dtype).removeprefix("torch.")
+        row.update(shape=list(x.shape), dtype=dname, tol=TOL[dname])
+        if not (x.is_cuda and out.is_cuda and x.dtype == torch.bfloat16
+                and not kw.get("rate")):
+            failed.append((name, "not the bf16 inference form on the card"))
+        err, rel = compare(out, plain(*args))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["max_rel_err"] = max(row["max_rel_err"], rel)
+        if not (rel <= TOL[dname] and torch.isfinite(out.float()).all()):
+            failed.append((name, list(x.shape), dname, err, rel))
+    return row
+
+
 def pose_video(quadrant, fusion_head, card, reps=3):
     """``video``'s frame-batch core on 64 class-conditional renders (8
     classes, 256 px, BGR uint8) at batch 16: the neural extractor on the
     JAX checkpoint, ``extract_features_47`` and the ``quadtree-fusion``
     classifier at 224 px (random weights from seed 0). The bf16 run
     launches exactly 4 quadrant and 4 head kernels, both in the inference
-    form; then f32 probabilities on the card against the CPU (1e-4)."""
+    form, and each launch's output is held against the plain version on
+    its own inputs (2e-2). Then f32 probabilities on the card against the
+    CPU (1e-4): end to end, each side with its own extractor, and the
+    CPU's classifier on the card's staged images and features."""
     from surya_tpu_torch.core.config import get_preset
     from surya_tpu_torch.data.synthetic_pose import (
         class_swing_centers,
@@ -2325,12 +2398,14 @@ def pose_video(quadrant, fusion_head, card, reps=3):
 
     extractor = ln.load_pose_extractor(POSE_CKPT)
     classify = video.make_frame_classifier(cfg.model, state, size)
-    reset_launches(quadrant, fusion_head)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    records = run(classify, extractor)
-    first_s = time.perf_counter() - t0
-    launches = read_launches(quadrant, fusion_head)
+    with recording_kernels() as calls:
+        reset_launches(quadrant, fusion_head)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        records = run(classify, extractor)
+        first_s = time.perf_counter() - t0
+        launches = read_launches(quadrant, fusion_head)
+    held = hold_recorded(calls, quadrant, fusion_head)
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -2343,15 +2418,20 @@ def pose_video(quadrant, fusion_head, card, reps=3):
     assert len(records) == POSE_FRAMES and all(
         0.0 < r["confidence"] <= 1.0 for r in records), records
 
+    # f32, end to end (each side its own extractor), and the CPU's
+    # classifier on the card's staged images and features
     cfg32 = dataclasses.replace(cfg.model, compute_dtype="float32")
-    probs = {}
+    probs, clfs, staged = {}, {}, []
     for dev in ("cuda", "cpu"):
-        clf = video.make_frame_classifier(cfg32, state, size, device=dev)
+        clf = clfs[dev] = video.make_frame_classifier(cfg32, state, size,
+                                                      device=dev)
         seen = []
 
-        def recording(x, f, clf=clf, seen=seen):
+        def recording(x, f, clf=clf, seen=seen, dev=dev):
             p = clf.probs(x, f)
             seen.append(p.cpu())
+            if dev == "cuda":
+                staged.append((x.cpu(), f.cpu()))
             conf, pred = p.max(-1)
             return pred, conf
 
@@ -2360,7 +2440,9 @@ def pose_video(quadrant, fusion_head, card, reps=3):
                                      dtype=torch.float32)
         recs = run(recording, ext)
         probs[dev] = (torch.cat(seen), recs)
+    same_in = torch.cat([clfs["cpu"].probs(x, f) for x, f in staged])
     err = float((probs["cuda"][0] - probs["cpu"][0]).abs().max())
+    err_same_in = float((probs["cuda"][0] - same_in).abs().max())
     same_labels = [r["label"] for r in probs["cuda"][1]] == [
         r["label"] for r in probs["cpu"][1]]
     row = {"phase": "pose_video", "frames": POSE_FRAMES,
@@ -2370,10 +2452,12 @@ def pose_video(quadrant, fusion_head, card, reps=3):
            "detected": sum(r["detected"] for r in records),
            "first_run_s": first_s,
            "bf16_frames_per_s_median": POSE_FRAMES / statistics.median(times),
-           "f32_card_vs_cpu_max_abs_prob_err": err, "tol": 1e-4,
+           "bf16_kernels_vs_plain": held,
+           "f32_card_vs_cpu_max_abs_prob_err": err,
+           "f32_same_inputs_max_abs_prob_err": err_same_in, "tol": 1e-4,
            "f32_labels_equal": same_labels, **card}
     emit(row)
-    if not (err <= 1e-4 and same_labels):
+    if not (err <= 1e-4 and err_same_in <= 1e-4 and same_labels):
         raise AssertionError(f"video core f32 card vs CPU: {row}")
     return launches
 

@@ -24,7 +24,7 @@ JAX package so each counterpart is easy to find:
 - ``infer``    — fixed-batch ``Predictor``, the HTTP server, video
 - ``interpret`` — Grad-CAM by autograd, the hierarchical feature maps
 - ``core``     — also checkpoints, metrics, the named random streams and
-                 the msgpack codec of the pose artifacts
+                 the pose artifacts' flax msgpack
 - ``features`` — the 47- and 443-feature extractors; ``utils`` — plots
 
 Entry points run on the card (``device=None`` → ``"cuda"``) and raise if

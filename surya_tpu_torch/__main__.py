@@ -306,6 +306,7 @@ def cmd_pose_train(argv: list[str]) -> int:
     import argparse
 
     from surya_tpu_torch.models.pose import train_pose_landmark
+    from surya_tpu_torch.models.pose.train import POSE_OUT
 
     ap = argparse.ArgumentParser(prog="surya_tpu_torch pose-train")
     ap.add_argument("--steps", type=int, default=600)
@@ -316,7 +317,9 @@ def cmd_pose_train(argv: list[str]) -> int:
     ap.add_argument("--width", type=int, default=32,
                     help="base channel width (divisible by 8)")
     ap.add_argument("--lr", type=float, default=1e-3)
-    ap.add_argument("--out", default="runs/pose_landmark")
+    ap.add_argument("--out", default=POSE_OUT,
+                    help="run directory (default %(default)s; the tracked "
+                         "runs/pose_landmark* are the JAX package's)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--occlude-p", type=float, default=0.0,
                     help="per-sample random-patch occlusion probability "

@@ -16,7 +16,8 @@ from ``surya_tpu/models/pose/landmark_net.py``.
   list of them, one forward on the device).
 - ``save_pose_params`` / ``load_pose_params``: the single-file artifact
   the JAX package writes (flax msgpack, ``{"meta", "params"}``; legacy flat
-  params are read too), through the port's own codec (``core/msgpack.py``),
+  params are read too), through ``core/flax_msgpack.py`` (the ``msgpack``
+  package with flax's extension types),
   so artifacts of either package load in both.
 
 Numerics follow flax where they differ from torch's defaults: SAME padding
@@ -231,7 +232,7 @@ def save_pose_params(path: str, params, image_size: int = 256) -> None:
     """The JAX package's single-file artifact (format 1): flax msgpack of
     ``{"meta": {format, width, image_size}, "params": <flax tree>}``.
     ``params`` is a ``PoseLandmarkNet`` or its state_dict."""
-    from surya_tpu_torch.core.msgpack import packb
+    from surya_tpu_torch.core.flax_msgpack import packb
     from surya_tpu_torch.models.from_jax import to_jax_params
 
     sd = params.state_dict() if isinstance(params, nn.Module) else params
@@ -246,7 +247,7 @@ def save_pose_params(path: str, params, image_size: int = 256) -> None:
 def _restore_artifact(path: str) -> tuple[dict, dict]:
     """A pose artifact → (flax param tree, meta): the format-1 payload, or
     legacy flat params (width from the stem kernel, image size 256)."""
-    from surya_tpu_torch.core.msgpack import unpackb
+    from surya_tpu_torch.core.flax_msgpack import unpackb
 
     with open(path, "rb") as f:
         raw = unpackb(f.read())

@@ -89,9 +89,14 @@ def eval_metrics(model, imgs, xy, z, vis) -> dict:
             "vis_acc": ((lm[..., 3] > 0.5) == (vis > 0.5)).float().mean()}
 
 
+# the port's own run directory: the tracked runs/pose_landmark* hold the
+# JAX package's checkpoints and summaries
+POSE_OUT = "runs/pose_landmark_torch"
+
+
 def train_pose_landmark(steps: int = 600, batch: int = 64,
                         image_size: int = 256, width: int = 32,
-                        out_dir: str = "runs/pose_landmark",
+                        out_dir: str = POSE_OUT,
                         peak_lr: float = 1e-3, eval_every: int = 50,
                         seed: int = 0, echo: bool = True,
                         occlude_p: float = 0.0, mirror_p: float = 0.0,
