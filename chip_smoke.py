@@ -68,6 +68,17 @@ processes that run it):
   exactly 4 quadrant and 4 head launches, each of them held against its
   plain version on the inputs it was given, and f32 probabilities card
   vs CPU, end to end and on the card's staged images and features.
+- **export**: ``python -m surya_tpu_torch export`` of ``quadtree-fusion``
+  (224 px, seed 0, batch 64) as a bf16 artifact on a uint8 wire and an
+  f32 one, and of ``quadtree-3d`` at its batch of 8, each served by
+  ``load_exported(...).call`` in a child that imports only
+  ``surya_tpu_torch``: 640 images launch exactly 10 + 10 inference-form
+  kernels, probabilities against the in-process ``Predictor`` (bf16
+  2e-2, f32 1e-5; the f32 artifact on the CPU 1e-4 from the card), both
+  operators and no training form in each graph, img/s of ``call``
+  against ``Predictor.predict`` in turns; ``export-torch`` and back
+  through ``load_reference_state_dict``, bit-equal; ``check`` exits 0
+  naming the card and the three kernel builds.
 
 It times kernels, serving and the train step with CUDA events; each
 main-path kernel in turns with its library yardstick, after the same L2
@@ -2481,6 +2492,304 @@ def pose_phase(quadrant, fusion_head, card):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# export: torch.export serving artifacts and the reference interchange
+# ---------------------------------------------------------------------------
+
+EXPORT_DIR = os.path.join(REPO, "build", "chip_smoke_export")
+EXPORT_IMAGES, EXPORT_BATCH, EXPORT_RUNS = 640, 64, 3
+TEMPORAL_EXPORT_CLIPS = 16        # two chunks at quadtree-3d's batch of 8
+OP_NAMES = ("quadrant_process", "fusion_head")
+
+
+def start_cli(args):
+    """``python -m surya_tpu_torch ARGS`` from the repository, started."""
+    return subprocess.Popen([sys.executable, "-m", "surya_tpu_torch", *args],
+                            cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def start_artifact_child(spec: dict):
+    """``chip_smoke.py --serve-artifact SPEC``, started: a process that
+    imports only ``surya_tpu_torch`` and serves an artifact."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--serve-artifact", json.dumps(spec)],
+                            cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish(procs: dict, timeout=600) -> dict:
+    """Wait for every started child → {name: (stdout, seconds)}; a child
+    that fails raises, and every child still running is killed."""
+    t0, out = time.perf_counter(), {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            if proc.returncode != 0:
+                raise AssertionError(f"{name} failed ({proc.returncode}):\n"
+                                     f"{stdout[-4000:]}\n{stderr[-4000:]}")
+            out[name] = (stdout, time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def last_json(stdout: str) -> dict:
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def wire_images(raw: np.ndarray, wire: str) -> np.ndarray:
+    return raw if wire == "uint8" else (raw / 255.0).astype(np.float32)
+
+
+def serve_artifact(spec: dict) -> dict:
+    """The child: load the artifact onto ``spec["device"]`` and run the
+    first ``n`` samples of the saved inputs through ``call`` in its fixed
+    batch, with every launch count set to 0 just before and read just
+    after; the probabilities go to ``spec["probs"]``. With
+    ``spec["time_against"]`` (a checkpoint and its Predictor settings),
+    ``EXPORT_RUNS`` timed passes of the artifact and of the Predictor in
+    turns. → launches, graph nodes, timings."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from surya_tpu_torch.infer.serve import load_exported
+    from surya_tpu_torch.ops.cuda import fusion_head, quadrant
+
+    t0 = time.perf_counter()
+    loaded = load_exported(spec["artifact"], device=spec["device"])
+    load_s = time.perf_counter() - t0
+    meta, n = loaded.meta, spec["n"]
+    images = wire_images(np.load(spec["images"])[:n], meta["input_dtype"])
+    feats = np.load(spec["feats"])[:n]
+    b = meta["batch_size"]
+
+    def run():
+        return [loaded.call(images[lo:lo + b], feats[lo:lo + b])[1].cpu()
+                for lo in range(0, n, b)]
+
+    loaded.call(images[:b], feats[:b])                  # warm-up
+    sync = torch.cuda.synchronize if spec["device"] == "cuda" else (
+        lambda: None)
+    sync()
+    reset_launches(quadrant, fusion_head)
+    probs = torch.cat(run()).numpy()
+    sync()
+    launches = read_launches(quadrant, fusion_head)
+    np.save(spec["probs"], probs)
+    nodes = [node for node in loaded.program.graph.nodes
+             if node.op == "call_function"]
+    graph = {name: sum(str(node.target) == f"surya_tpu_torch.{name}.default"
+                       for node in nodes) for name in OP_NAMES}
+    graph["training_form_nodes"] = sum(
+        "autograd" in str(node.target) or "higher_order" in str(node.target)
+        for node in nodes)
+    graph["quadrant_plain_convs"] = sum(
+        node.target == torch.ops.aten.conv2d.default and
+        tuple(node.meta["val"].shape[2:]) == (meta["image_size"] // 32,) * 2
+        and node.meta["val"].shape[0] == 4 * b for node in nodes)
+    out = {"load_s": load_s, "launches": launches, "graph": graph,
+           "input_dtype": meta["input_dtype"], "batch_size": b}
+    if spec.get("time_against"):
+        from surya_tpu_torch.core.checkpoint import load_params
+        from surya_tpu_torch.core.config import get_preset
+        from surya_tpu_torch.infer.serve import Predictor
+
+        against = spec["time_against"]
+        predictor = Predictor(
+            get_preset(against["preset"]).model,
+            load_params(against["checkpoint"]), batch_size=b,
+            param_dtype=getattr(torch, against["param_dtype"]),
+            input_dtype=meta["input_dtype"])
+        predictor.predict(images[:b], feats[:b])        # warm-up
+        rates = {"artifact": [], "predictor": []}
+        order = ["artifact", "predictor", "predictor", "artifact"] * 2
+        for name in order[:2 * EXPORT_RUNS]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "artifact":
+                [p.numpy() for p in run()]
+            else:
+                predictor.predict(images, feats)
+            rates[name].append(n / (time.perf_counter() - t0))
+        out["img_per_s"] = rates
+        out["img_per_s_median"] = {k: statistics.median(v)
+                                   for k, v in rates.items()}
+    return out
+
+
+def export_phase(quadrant, fusion_head, card):
+    """``export`` through the CLI, each artifact served in a child that
+    imports only ``surya_tpu_torch``: ``quadtree-fusion`` at 224 px from
+    seed 0, batch 64, as a bf16 artifact on a uint8 wire (the serve
+    phase's configuration: 640 images, exactly 10 + 10 inference-form
+    launches, probabilities within 2e-2 of the in-process Predictor's,
+    img/s of ``call`` against ``Predictor.predict`` in turns) and an f32
+    one on an f32 wire (within 1e-5 of the f32 Predictor; loaded on the
+    CPU, one chunk within 1e-4 of the card); both graphs hold the two
+    operators and no training form. ``quadtree-3d`` at its batch of 8 (the
+    head at D 1536: one launch per chunk). ``export-torch`` of the
+    flagship and back through ``load_reference_state_dict``, bit-equal;
+    ``check`` exits 0 naming the card and the three kernel builds. → the
+    artifacts' launches on the card per kernel form."""
+    from surya_tpu_torch.core.checkpoint import save_params
+    from surya_tpu_torch.core.config import get_preset
+    from surya_tpu_torch.infer.serve import Predictor
+    from surya_tpu_torch.models import get_model
+    from surya_tpu_torch.models.full_import import load_reference_state_dict
+    from surya_tpu_torch.ops.cuda import KERNELS
+
+    t_phase = time.perf_counter()
+    os.makedirs(EXPORT_DIR, exist_ok=True)
+    path = lambda name: os.path.join(EXPORT_DIR, name)   # noqa: E731
+    cfg, cfg3d = get_preset("quadtree-fusion"), get_preset("quadtree-3d")
+    size = cfg.data.image_size
+    state = get_model(cfg.model, image_size=size, seed=0).state_dict()
+    state3d = get_model(cfg3d.model, image_size=size, seed=0).state_dict()
+    save_params(path("flagship.pt"), state)
+    save_params(path("quadtree3d.pt"), state3d)
+    rng = np.random.default_rng(0)
+    raw = rng.integers(0, 256, (EXPORT_IMAGES, size, size, 3), np.uint8)
+    feats = rng.normal(size=(EXPORT_IMAGES, 47)).astype(np.float32)
+    t3d = cfg3d.model.seq_len
+    clips = rng.integers(0, 256, (TEMPORAL_EXPORT_CLIPS, t3d, size, size, 3),
+                         np.uint8)
+    clip_feats = rng.normal(size=(TEMPORAL_EXPORT_CLIPS, t3d, 47)).astype(
+        np.float32)
+    for name, a in (("images", raw), ("feats", feats), ("clips", clips),
+                    ("clip_feats", clip_feats)):
+        np.save(path(f"{name}.npy"), a)
+
+    # the artifacts, the reference checkpoint and the report, at once
+    f32 = ["--model.compute_dtype=float32"]
+    procs = {
+        "export_bf16": start_cli([
+            "export", path("flagship.pt"), path("flagship_bf16.pt2"),
+            "--batch-size", str(EXPORT_BATCH), "--param-dtype", "bfloat16",
+            "--input-dtype", "uint8"]),
+        "export_f32": start_cli([
+            "export", path("flagship.pt"), path("flagship_f32.pt2"),
+            "--batch-size", str(EXPORT_BATCH), "--param-dtype", "float32",
+            "--input-dtype", "float32", *f32]),
+        "export_3d": start_cli([
+            "export", path("quadtree3d.pt"), path("quadtree3d_bf16.pt2"),
+            "--preset", "quadtree-3d", "--batch-size",
+            str(cfg3d.data.batch_size), "--param-dtype", "bfloat16",
+            "--input-dtype", "uint8"]),
+        "export_torch": start_cli(["export-torch", path("flagship.pt"),
+                                   path("flagship_reference.pth")]),
+        "check": start_cli(["check"])}
+    made = finish(procs)
+    lines = {k: last_json(v[0]) for k, v in made.items() if k != "check"}
+    export_s = {k: made[k][1] for k in made}
+
+    # the report: the card and every kernel build
+    report = json.loads(made["check"][0])
+    built = {k: v["built"] for k, v in report["kernels"].items()}
+    if not (report["card"] == card["card"] and set(built) == set(KERNELS)
+            and all(built.values())):
+        raise AssertionError(f"check: {report}")
+
+    # the reference round trip: export-torch → import, bit for bit
+    ref = torch.load(path("flagship_reference.pth"), weights_only=True)
+    back = load_reference_state_dict("quadtree", ref, mode="fusion")
+    round_trip = sorted(back) == sorted(state) and all(
+        torch.equal(back[k], state[k]) for k in state)
+    if not round_trip:
+        raise AssertionError("export-torch → import is not the identity")
+
+    # serve the artifacts: f32 on the card and on the CPU and the temporal
+    # one together, then the bf16 one alone (it is timed)
+    def spec(artifact, n, probs, device="cuda", images="images",
+             feats_name="feats", **kw):
+        return {"artifact": path(artifact), "n": n, "device": device,
+                "images": path(f"{images}.npy"),
+                "feats": path(f"{feats_name}.npy"), "probs": path(probs),
+                **kw}
+
+    served = finish({
+        "f32": start_artifact_child(spec("flagship_f32.pt2", EXPORT_IMAGES,
+                                         "f32_card.npy")),
+        "f32_cpu": start_artifact_child(spec("flagship_f32.pt2",
+                                             EXPORT_BATCH, "f32_cpu.npy",
+                                             device="cpu")),
+        "3d": start_artifact_child(spec(
+            "quadtree3d_bf16.pt2", TEMPORAL_EXPORT_CLIPS, "3d.npy",
+            images="clips", feats_name="clip_feats"))})
+    served.update(finish({"bf16": start_artifact_child(spec(
+        "flagship_bf16.pt2", EXPORT_IMAGES, "bf16.npy",
+        time_against={"checkpoint": path("flagship.pt"),
+                      "preset": "quadtree-fusion",
+                      "param_dtype": "bfloat16"}))}))
+    runs = {k: last_json(v[0]) for k, v in served.items()}
+    probs = {k: np.load(path(f"{k}.npy")) for k in ("bf16", "3d")}
+    probs["f32"] = np.load(path("f32_card.npy"))
+    probs["f32_cpu"] = np.load(path("f32_cpu.npy"))
+
+    # the same weights and inputs through the in-process Predictor
+    want = {"bf16": Predictor(cfg.model, state, batch_size=EXPORT_BATCH,
+                              param_dtype=torch.bfloat16,
+                              input_dtype="uint8").predict(raw, feats)}
+    cfg32 = dataclasses.replace(cfg.model, compute_dtype="float32")
+    want["f32"] = Predictor(cfg32, state, batch_size=EXPORT_BATCH).predict(
+        wire_images(raw, "float32"), feats)
+    want["3d"] = Predictor(cfg3d.model, state3d,
+                           batch_size=cfg3d.data.batch_size,
+                           param_dtype=torch.bfloat16,
+                           input_dtype="uint8").predict(clips, clip_feats)
+    errs = {k: float(np.abs(probs[k] - want[k][1]).max()) for k in want}
+    agree = {k: float((probs[k].argmax(-1) == want[k][0]).mean())
+             for k in want}
+    errs["f32_cpu_vs_card"] = float(np.abs(
+        probs["f32_cpu"] - probs["f32"][:EXPORT_BATCH]).max())
+    tol = {"bf16": 2e-2, "f32": 1e-5, "3d": 2e-2, "f32_cpu_vs_card": 1e-4}
+
+    chunks = EXPORT_IMAGES // EXPORT_BATCH
+    chunks3d = TEMPORAL_EXPORT_CLIPS // cfg3d.data.batch_size
+    want_launches = {
+        "bf16": {"quadrant": chunks, "quadrant_train": 0,
+                 "fusion_head": chunks, "fusion_head_train": 0},
+        "f32": {"quadrant": chunks, "quadrant_train": 0,
+                "fusion_head": chunks, "fusion_head_train": 0},
+        "3d": {"quadrant": 0, "quadrant_train": 0, "fusion_head": chunks3d,
+               "fusion_head_train": 0}}
+    graphs = {k: runs[k]["graph"] for k in runs}
+    row = {"phase": "export", "preset": "quadtree-fusion", "image_size": size,
+           "batch": EXPORT_BATCH, "images": EXPORT_IMAGES,
+           "artifact_bytes": {k: lines[f"export_{k}"]["bytes"]
+                              for k in ("bf16", "f32", "3d")},
+           "child_s": export_s,
+           "load_s": {k: runs[k]["load_s"] for k in runs},
+           "launches": {k: runs[k]["launches"] for k in want_launches},
+           "graph": graphs, "max_abs_prob_err": errs, "tol": tol,
+           "argmax_agreement": agree,
+           "img_per_s": runs["bf16"]["img_per_s"],
+           "img_per_s_median": runs["bf16"]["img_per_s_median"],
+           "reference_round_trip_bit_equal": round_trip,
+           "reference_tensors": lines["export_torch"]["tensors"],
+           "check_kernels": built,
+           "seconds": time.perf_counter() - t_phase, **card}
+    emit(row)
+    for k, n in want_launches.items():
+        if runs[k]["launches"] != n:
+            raise AssertionError(f"{k} artifact launches {runs[k]['launches']}"
+                                 f" != {n}")
+    for k, g in graphs.items():
+        quad = 0 if k == "3d" else 1
+        if (g["quadrant_process"], g["fusion_head"]) != (quad, 1) or g[
+                "training_form_nodes"] or g["quadrant_plain_convs"]:
+            raise AssertionError(f"{k} artifact graph: {g}")
+    if not all(errs[k] <= tol[k] for k in tol):
+        raise AssertionError(f"export probabilities: {errs} (tol {tol})")
+    if runs["f32_cpu"]["launches"] != {k: 0 for k in want_launches["3d"]}:
+        raise AssertionError(f"the CPU child launched: {runs['f32_cpu']}")
+    return {name: sum(runs[k]["launches"][name] for k in want_launches)
+            for name in want_launches["bf16"]}
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2534,6 +2843,8 @@ def main() -> int:
                              f"temporal path: {temporal_launches}")
     torch.cuda.empty_cache()
     pose_launches = pose_phase(quadrant, fusion_head, card)
+    torch.cuda.empty_cache()
+    export_launches = export_phase(quadrant, fusion_head, card)
 
     # name → (source, replaces, launches on its path, max |kernel - plain|
     # at the shape that path gives it, bf16)
@@ -2565,12 +2876,14 @@ def main() -> int:
                      "loop": loop_launches["quadrant"]["inference"],
                      "spatial": spatial_launches["quadrant"],
                      "temporal": temporal_launches["quadrant"],
-                     "pose": pose_launches["quadrant"]},
+                     "pose": pose_launches["quadrant"],
+                     "export": export_launches["quadrant"]},
         "fusion_head": {"serve": serve_launches["fusion_head"],
                         "loop": loop_launches["fusion_head"]["inference"],
                         "spatial": spatial_launches["fusion_head"],
                         "temporal": temporal_launches["fusion_head"],
-                        "pose": pose_launches["fusion_head"]},
+                        "pose": pose_launches["fusion_head"],
+                        "export": export_launches["fusion_head"]},
         "quadrant_train": {"train": train_launches["quadrant"],
                            "loop": loop_launches["quadrant"]["training"],
                            "spatial": spatial_launches["quadrant_train"],
@@ -2607,4 +2920,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve-artifact"]:   # the export phase's child
+        emit(serve_artifact(json.loads(sys.argv[2])))
+        sys.exit(0)
     sys.exit(main())

@@ -12,7 +12,9 @@ JAX package so each counterpart is easy to find:
                  (quadtree, hierarchical, attention, standard), the first
                  temporal families (CNN+LSTM, Ji3DCNN, Quadtree3DCNN, the
                  r3d_18 and ViT ones), ``models/pose``: the landmark net
-                 and its training, losses, registry, JAX weight import
+                 and its training, losses, registry, JAX weight import,
+                 and the reference's PyTorch checkpoints both ways
+                 (``full_import``/``full_export``)
 - ``data``     — host batches (in-memory, disk, packed; sequence windows
                  and sequence packs), the device-side augmentation and
                  imputation, the replay and synthetic-pose generators, the
@@ -21,11 +23,14 @@ JAX package so each counterpart is easy to find:
 - ``native``   — the ctypes JPEG batch decoder (host side)
 - ``train``    — the train and eval steps (AdamW, clip, freeze, NaN guard),
                  the epoch loop with checkpoints and resume, comparison
-- ``infer``    — fixed-batch ``Predictor``, the HTTP server, video
+- ``infer``    — fixed-batch ``Predictor``, the ``torch.export`` serving
+                 artifact (``export_model``/``load_exported``), the HTTP
+                 server, video
 - ``interpret`` — Grad-CAM by autograd, the hierarchical feature maps
 - ``core``     — also checkpoints, metrics, the named random streams and
                  the pose artifacts' flax msgpack
 - ``features`` — the 47- and 443-feature extractors; ``utils`` — plots
+- ``bench``    — host input-pipeline throughput (native decoder vs PIL)
 
 Entry points run on the card (``device=None`` → ``"cuda"``) and raise if
 there is none, unless the caller passes ``device="cpu"``.

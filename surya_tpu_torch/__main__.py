@@ -17,14 +17,23 @@
       [--out annotated.mp4] [--pose-ckpt pose.msgpack] [--display]
   python -m surya_tpu_torch ingest pt-windows PT_ROOT OUT_ROOT
   python -m surya_tpu_torch ingest clip-csv PROCESSED_ROOT OUT_ROOT
+  python -m surya_tpu_torch export CKPT OUT.pt2 [--preset P] [--batch-size 32] \
+      [--param-dtype bfloat16|float16|float32] \
+      [--input-dtype float32|bfloat16|uint8]
+  python -m surya_tpu_torch export-torch CKPT OUT.pth [--preset P]
+  python -m surya_tpu_torch check [--device cpu]
 
 CKPT is a checkpoint directory written by ``train`` (its latest step), one
 of its ``<step>.pt`` files, a ``.pt`` of the port's ``state_dict`` or a
 ``.npz`` of a JAX variable tree (``/``-joined keys). ``pose-train`` writes
 the pose net's msgpack artifact (the JAX package's format), which
-``video --pose-ckpt`` reads. Everything runs on the card; ``--device cpu``
-runs the plain PyTorch path instead (for tests); ``ingest`` is host file
-conversion.
+``video --pose-ckpt`` reads. ``export`` writes a ``torch.export``
+serving artifact (``infer.serve.load_exported`` runs it; it needs this
+package where it runs, for the two kernels' operators); ``export-torch``
+writes the reference's own state_dict (``.pth``); ``check`` reports the
+environment and builds every kernel. Everything runs on the card;
+``--device cpu`` runs the plain PyTorch path instead (for tests);
+``ingest`` and ``export-torch`` are host file conversion.
 Dotted ``--section.field=value`` flags override the preset.
 """
 
@@ -399,6 +408,151 @@ def cmd_compare(argv: list[str]) -> int:
     return 0
 
 
+def cmd_export(argv: list[str]) -> int:
+    """``torch.export`` a checkpoint as a fixed-batch serving artifact
+    (``infer/serve.py``); ``infer.serve.load_exported`` runs it."""
+    import argparse
+
+    import torch
+
+    from surya_tpu_torch.core.checkpoint import load_checkpoint_variables
+    from surya_tpu_torch.infer.serve import export_model
+
+    ap = argparse.ArgumentParser(prog="surya_tpu_torch export")
+    ap.add_argument("checkpoint")
+    ap.add_argument("out", help="output artifact path (.pt2)")
+    ap.add_argument("--preset", default="quadtree-fusion")
+    ap.add_argument("--batch-size", type=int, default=32)
+    ap.add_argument("--param-dtype", default=None,
+                    choices=["bfloat16", "float16", "float32"],
+                    help="cast baked-in weights (bfloat16 roughly "
+                         "halves the artifact; BN stats stay f32)")
+    ap.add_argument("--input-dtype", default="float32",
+                    choices=["float32", "bfloat16", "uint8"],
+                    help="image wire format: uint8 takes RAW 0-255 "
+                         "pixels and bakes the /255 into the program "
+                         "(4x smaller host->device transfer)")
+    ap.add_argument("--device", default=None,
+                    help="default: the card; 'cpu' traces on the CPU")
+    args, rest = ap.parse_known_args(argv)
+    cfg, _ = _config(args, rest)
+    export_model(cfg.model, load_checkpoint_variables(args.checkpoint),
+                 args.out, batch_size=args.batch_size,
+                 image_size=cfg.data.image_size,
+                 param_dtype=(None if args.param_dtype is None
+                              else getattr(torch, args.param_dtype)),
+                 input_dtype=args.input_dtype, device=args.device)
+    print(json.dumps({"artifact": os.path.abspath(args.out),
+                      "bytes": os.path.getsize(args.out),
+                      "batch_size": args.batch_size,
+                      "input_dtype": args.input_dtype,
+                      "model": cfg.model.name}), flush=True)
+    return 0
+
+
+def cmd_export_torch(argv: list[str]) -> int:
+    """Write a checkpoint as a reference-named torch state_dict
+    (``models/full_export.py``, the inverse of ``full_import``): the
+    ``.pth`` loads into the reference's own ``get_model`` with
+    ``load_state_dict``. A host conversion: no device is used."""
+    import argparse
+
+    import torch
+
+    from surya_tpu_torch.core.checkpoint import load_checkpoint_variables
+    from surya_tpu_torch.models.full_export import export_reference_state_dict
+    from surya_tpu_torch.models.full_import import family_kwargs
+
+    ap = argparse.ArgumentParser(prog="surya_tpu_torch export-torch")
+    ap.add_argument("checkpoint")
+    ap.add_argument("out", help="output path (.pth)")
+    ap.add_argument("--preset", default="quadtree-fusion")
+    args, rest = ap.parse_known_args(argv)
+    cfg, _ = _config(args, rest)
+    sd = export_reference_state_dict(
+        cfg.model.name, load_checkpoint_variables(args.checkpoint),
+        **family_kwargs(cfg.model))
+    torch.save(sd, args.out)
+    print(json.dumps({"artifact": os.path.abspath(args.out),
+                      "format": "torch", "model": cfg.model.name,
+                      "tensors": len(sd)}), flush=True)
+    return 0
+
+
+def _card_report(report: dict) -> bool:
+    """The card, nvidia-smi's name and power limit, nvcc, and each
+    ``csrc/*.cu`` built and opened, into ``report``. → all present."""
+    import shutil
+    import subprocess
+
+    import torch
+
+    from surya_tpu_torch.ops.cuda import KERNELS, _build
+
+    ok = torch.cuda.is_available()
+    report["card"] = torch.cuda.get_device_name(0) if ok else None
+    report["device_count"] = torch.cuda.device_count()
+    smi = shutil.which("nvidia-smi")
+    report["nvidia_smi"] = None if smi is None else subprocess.run(
+        [smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    try:
+        report["nvcc"], report["nvcc_version"] = _build.nvcc_version()
+    except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+        report["nvcc"], report["nvcc_version"] = None, str(e)
+        ok = False
+    kernels = report["kernels"] = {}
+    for name in KERNELS:
+        if report["nvcc"] is None:
+            kernels[name] = {"built": False, "error": "no nvcc"}
+            continue
+        try:
+            kernels[name] = {"built": True,
+                             "library": str(_build.build_and_open(name))}
+        except (RuntimeError, OSError) as e:
+            kernels[name] = {"built": False, "error": str(e)[-2000:]}
+            ok = False
+    return ok
+
+
+def cmd_check(argv: list[str]) -> int:
+    """Environment report, as JSON: torch and CUDA, the card and its power
+    limit, nvcc, whether each kernel of ``csrc/`` builds and loads, the
+    native decoder and the optional packages of ``python -m surya_tpu
+    check``. Exits 1 when there is no card or a kernel fails to build
+    (the report is printed all the same); ``--device cpu`` reports without
+    building."""
+    import argparse
+    import importlib.util
+
+    import torch
+
+    from surya_tpu_torch import native
+
+    ap = argparse.ArgumentParser(prog="surya_tpu_torch check")
+    ap.add_argument("--device", default=None,
+                    help="default: the card; 'cpu' skips the card checks")
+    args = ap.parse_args(argv)
+    report = {"torch": torch.__version__, "cuda": torch.version.cuda,
+              "cuda_available": torch.cuda.is_available()}
+    ok = True
+    if args.device != "cpu":
+        ok = _card_report(report)
+    for dep, why in [("PIL", "image IO"), ("cv2", "video IO/skeletons"),
+                     ("msgpack", "pose checkpoints (core/flax_msgpack.py)"),
+                     ("mediapipe", "pose landmark extraction (optional: "
+                                   "the port's landmark net needs none)"),
+                     ("rembg", "background removal (optional)"),
+                     ("diffusers", "Zero123-Plus multiview (optional)"),
+                     ("matplotlib", "plots"),
+                     ("sklearn", "metric cross-checks (tests)")]:
+        report[dep] = {"available": importlib.util.find_spec(dep) is not None,
+                       "needed_for": why}
+    report["native_decoder"] = native.available()
+    print(json.dumps(report, indent=2), flush=True)
+    return 0 if ok else 1
+
+
 def cmd_list_presets() -> int:
     from surya_tpu_torch.core.config import get_preset, list_presets
 
@@ -420,7 +574,8 @@ def main(argv: list[str] | None = None) -> int:
         return cmd_list_presets()
     commands = {"train": cmd_train, "eval": cmd_eval, "pack": cmd_pack,
                 "compare": cmd_compare, "cam": cmd_cam,
-                "pose-train": cmd_pose_train}
+                "pose-train": cmd_pose_train, "export": cmd_export,
+                "export-torch": cmd_export_torch, "check": cmd_check}
     if cmd in commands:
         return commands[cmd](rest)
     if cmd == "serve":

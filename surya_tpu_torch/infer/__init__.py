@@ -1,1 +1,10 @@
-"""Serving tier: fixed-batch Predictor and the HTTP server."""
+"""Serving tier: the fixed-batch Predictor, the ``torch.export`` serving
+artifact, the HTTP server and video."""
+
+from surya_tpu_torch.infer.serve import (  # noqa: F401
+    ExportedPredictor,
+    Predictor,
+    ServingForward,
+    export_model,
+    load_exported,
+)

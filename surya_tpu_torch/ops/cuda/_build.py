@@ -108,6 +108,25 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     return lib
 
 
+def build_and_open(name: str) -> Path:
+    """Build ``csrc/<name>.cu`` unless it is built, and open the library:
+    → its path. Raises what nvcc or the loader reports (``check``'s probe
+    of each kernel)."""
+    build_all([name])
+    path = _lib_path(name)
+    ctypes.CDLL(str(path))
+    return path
+
+
+def nvcc_version() -> tuple[str, str]:
+    """(nvcc's path, its release line). Raises when there is no toolkit."""
+    nvcc = _nvcc()
+    out = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout
+    return nvcc, next((line for line in out.splitlines() if "release" in line),
+                      out.strip().splitlines()[-1])
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")

@@ -28,7 +28,12 @@ host never waits for it.
 
 :func:`fusion_head` picks by the tensor's device: a CUDA tensor launches
 the kernel (and counts it in ``launches``), a CPU tensor runs
-:func:`fusion_head_plain`. When a gradient is wanted it goes through
+:func:`fusion_head_plain`. Without a gradient and at rate 0 it calls the
+inference form as the operator ``torch.ops.surya_tpu_torch.fusion_head``
+(a ``torch.library.custom_op``: the kernel for a CUDA tensor, the plain
+version for a CPU one, a fake for tracing and a flop formula), which
+``torch.export`` keeps as one node of the exported graph. When a gradient
+is wanted it goes through
 :class:`FusionHead`, whose backward mirrors JAX's ``_bwd``: three matrix
 products with the single gate ``h > 0`` times ``1/(1-rate)`` (library
 products, as XLA's in JAX).
@@ -39,6 +44,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from surya_tpu_torch.ops import on_cuda
 from surya_tpu_torch.ops.cuda import _build
@@ -167,6 +173,36 @@ def _forward(x, w1, b1, w2, b2, rate: float, seed, with_h: bool):
     return out, h
 
 
+
+@torch.library.custom_op("surya_tpu_torch::fusion_head", mutates_args=(),
+                         device_types="cuda")
+def fusion_head_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The inference form (rate 0) as an operator: on the card, the kernel
+    launch (counted in ``launches``). ``contiguous`` costs nothing for the
+    activations the model hands over, and keeps an exported graph on the
+    kernel where a replay's strides differ from the trace's."""
+    return _forward(x.contiguous(), w1, b1, w2, b2, 0.0, None,
+                    with_h=False)[0]
+
+
+@fusion_head_op.register_kernel("cpu")
+def _fusion_head_op_cpu(x, w1, b1, w2, b2):
+    return fusion_head_plain(x, w1, b1, w2, b2)
+
+
+@fusion_head_op.register_fake
+def _fusion_head_op_fake(x, w1, b1, w2, b2):
+    return x.new_empty((x.shape[0], w2.shape[0]), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.surya_tpu_torch.fusion_head)
+def fusion_head_flops(x_shape, w1_shape, b1_shape, w2_shape, *args,
+                      **kwargs) -> int:
+    """2 FLOP per multiply-add of the two products: 2·B·(D·H + H·C)."""
+    (b, d), hdim, c = x_shape, w1_shape[0], w2_shape[0]
+    return 2 * b * (d * hdim + hdim * c)
+
 def launch_plan(b: int, d: int, h: int, dtype=torch.bfloat16) -> dict:
     """The bf16 body's launch at these shapes (all 0 for f32, which runs
     the CUDA-core body): grid, threads, cluster size, dynamic shared-memory
@@ -218,7 +254,8 @@ def fusion_head(x, w1, b1, w2, b2, *, rate: float = 0.0,
                 seed=None) -> torch.Tensor:
     """(B, D) x, (H, D) w1, (H,) b1, (C, H) w2, (C,) b2 → (B, C) f32.
     ``rate > 0`` needs ``seed``. Differentiable: when a gradient is wanted
-    the training form runs and saves h."""
+    the training form runs and saves h; otherwise, at rate 0, the
+    inference operator :func:`fusion_head_op` runs."""
     _check(x, w1, b1, w2, b2)
     rate = float(rate)
     if not 0.0 <= rate < 1.0:
@@ -228,6 +265,8 @@ def fusion_head(x, w1, b1, w2, b2, *, rate: float = 0.0,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w1, b1, w2, b2)):
         return FusionHead.apply(x, w1, b1, w2, b2, rate, seed)
+    if rate == 0.0:
+        return fusion_head_op(x, w1, b1, w2, b2)
     return _forward(x, w1, b1, w2, b2, rate, seed, with_h=False)[0]
 
 

@@ -15,7 +15,12 @@ the pool taken on the f32 values, outputs rounded once to the input dtype.
 
 :func:`quadrant_process` picks by the tensor's device: a CUDA tensor
 launches the kernel (and counts it in ``launches``), a CPU tensor runs
-:func:`quadrant_process_plain`. When a gradient is wanted it goes through
+:func:`quadrant_process_plain`. Without a gradient it calls the inference
+form as the operator ``torch.ops.surya_tpu_torch.quadrant_process``
+(a ``torch.library.custom_op``: the kernel for a CUDA tensor, the plain
+version for a CPU one, a fake for tracing and a flop formula), which
+``torch.export`` keeps as one node of the exported graph. When a gradient
+is wanted it goes through
 :class:`QuadrantProcess`, whose backward mirrors JAX's ``_quadrant_bwd``:
 pool VJP from the saved act, ReLU mask, the two transposed convolutions
 (library convolutions, as XLA's in JAX), bias gradient summed in f32. The
@@ -28,6 +33,7 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from surya_tpu_torch.ops import on_cuda
 from surya_tpu_torch.ops.cuda import _build
@@ -108,6 +114,36 @@ def _forward(fmap, kernel, bias, with_act: bool):
     return out, act
 
 
+
+@torch.library.custom_op("surya_tpu_torch::quadrant_process",
+                         mutates_args=(), device_types="cuda")
+def quadrant_op(fmap: torch.Tensor, kernel: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """The inference form as an operator: on the card, the kernel launch
+    (counted in ``launches``). ``contiguous`` costs nothing for the NHWC
+    map the model hands over, and keeps an exported graph on the kernel
+    where a replay's strides differ from the trace's."""
+    return _forward(fmap.contiguous(), kernel, bias, with_act=False)[0]
+
+
+@quadrant_op.register_kernel("cpu")
+def _quadrant_op_cpu(fmap, kernel, bias):
+    return quadrant_process_plain(fmap, kernel, bias)
+
+
+@quadrant_op.register_fake
+def _quadrant_op_fake(fmap, kernel, bias):
+    b, h = fmap.shape[:2]
+    return fmap.new_empty((b, 4 * (h // 4) ** 2 * kernel.shape[3]))
+
+
+@register_flop_formula(torch.ops.surya_tpu_torch.quadrant_process)
+def quadrant_flops(fmap_shape, kernel_shape, *args, **kwargs) -> int:
+    """2 FLOP per multiply-add of the four quadrants' 3x3 convolutions:
+    2·B·4·(H/2)²·9·Cin·Cout."""
+    b, h, _, cin = fmap_shape
+    return 2 * b * 4 * (h // 2) ** 2 * 9 * cin * kernel_shape[3]
+
 def launch_plan(b: int, h: int, cin: int, cout: int, with_act: bool,
                 dtype=torch.bfloat16) -> dict:
     """The wgmma body's launch at these shapes (all 0 where the CUDA-core
@@ -172,12 +208,13 @@ def quadrant_process(fmap: torch.Tensor, kernel: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
     """(B, H, H, Cin) NHWC map, (3, 3, Cin, Cout) HWIO kernel, (Cout,)
     bias → (B, 4·(H/4)²·Cout) in fmap's dtype. Differentiable: when a
-    gradient is wanted the training form runs and saves act."""
+    gradient is wanted the training form runs and saves act; otherwise
+    the inference operator :func:`quadrant_op` runs."""
     _check(fmap, kernel, bias)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (fmap, kernel, bias)):
         return QuadrantProcess.apply(fmap, kernel, bias)
-    return _forward(fmap, kernel, bias, with_act=False)[0]
+    return quadrant_op(fmap, kernel, bias)
 
 
 def quadrant_process_with_act(fmap, kernel, bias):

@@ -229,3 +229,88 @@ def test_cli_refusals(tmp_path, capsys):
     if not torch.cuda.is_available():   # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["train", "--synthetic", "--out", str(tmp_path / "c")])
+
+
+SMALL = ["--data.image_size=64", "--model.num_classes=3",
+         "--model.compute_dtype=float32"]
+
+
+@pytest.fixture
+def checkpoint(tmp_path):
+    """A random quadtree-fusion state_dict at 64 px, 3 classes, as .pt."""
+    from surya_tpu_torch.core.checkpoint import save_params
+    from surya_tpu_torch.core.config import ModelConfig
+    from surya_tpu_torch.models import get_model
+
+    cfg = ModelConfig(name="quadtree", num_classes=3, compute_dtype="float32")
+    torch.manual_seed(0)
+    sd = get_model(cfg, image_size=64).state_dict()
+    path = str(tmp_path / "w.pt")
+    save_params(path, sd)
+    return cfg, sd, path
+
+
+def test_export(checkpoint, tmp_path, capsys):
+    """``export`` writes the serving artifact, which serves what the
+    Predictor serves on the same weights."""
+    from surya_tpu_torch.infer.serve import Predictor, load_exported
+
+    cfg, sd, ckpt = checkpoint
+    out = str(tmp_path / "q.pt2")
+    assert main(["export", ckpt, out, "--batch-size", "2", "--input-dtype",
+                 "uint8", "--device", "cpu", *SMALL]) == 0
+    line = _last_json(capsys)
+    assert line == {"artifact": os.path.abspath(out),
+                    "bytes": os.path.getsize(out), "batch_size": 2,
+                    "input_dtype": "uint8", "model": "quadtree"}
+    rng = np.random.default_rng(0)
+    raw = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    feats = rng.normal(size=(2, 47)).astype(np.float32)
+    preds, probs = load_exported(out, device="cpu").call(raw, feats)
+    want_preds, want_probs = Predictor(
+        cfg, sd, batch_size=2, image_size=64, input_dtype="uint8",
+        device="cpu").predict(raw, feats)
+    np.testing.assert_array_equal(probs.numpy(), want_probs)
+    np.testing.assert_array_equal(preds.numpy(), want_preds)
+
+
+def test_export_torch(checkpoint, tmp_path, capsys):
+    """``export-torch`` writes the reference-named state_dict; the
+    importer gives the checkpoint back bit for bit."""
+    from surya_tpu_torch.models.full_export import EXPORTERS
+    from surya_tpu_torch.models.full_import import load_reference_state_dict
+
+    _, sd, ckpt = checkpoint
+    out = str(tmp_path / "ref.pth")
+    assert main(["export-torch", ckpt, out, *SMALL]) == 0
+    line = _last_json(capsys)
+    ref = torch.load(out, weights_only=True)
+    assert line == {"artifact": os.path.abspath(out), "format": "torch",
+                    "model": "quadtree", "tensors": len(ref)}
+    assert "base_cnn.fc.weight" in ref and "classifier.0.weight" in ref
+    assert sorted(ref) == sorted(EXPORTERS["quadtree"](sd))
+    back = load_reference_state_dict("quadtree", ref)
+    assert sorted(back) == sorted(sd)
+    assert all(torch.equal(back[k], sd[k]) for k in sd)
+
+
+@pytest.mark.parametrize("device", ["cpu", "card"])
+def test_check(device, capsys, monkeypatch):
+    """``check --device cpu`` reports and exits 0 without building; the
+    card check exits 1 when there is no card, the report printed all the
+    same with every kernel listed."""
+    from surya_tpu_torch.ops.cuda import KERNELS
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["check"] + (["--device", "cpu"] if device == "cpu" else [])
+    rc = main(argv)
+    report = json.loads(capsys.readouterr().out)
+    assert report["torch"] == torch.__version__ and not report[
+        "cuda_available"]
+    assert {"PIL", "cv2", "msgpack", "mediapipe", "rembg", "diffusers",
+            "matplotlib", "sklearn", "native_decoder"} <= set(report)
+    if device == "cpu":
+        assert rc == 0 and "kernels" not in report
+    else:
+        assert rc == 1 and report["card"] is None
+        assert set(report["kernels"]) == set(KERNELS)

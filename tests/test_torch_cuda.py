@@ -467,3 +467,64 @@ def test_grad_cam_on_card_matches_cpu_from_the_same_activation(cuda, name,
                                 merges, feats, target)
     assert (cam_g.cpu() - cam_c).abs().max().item() <= 2e-4
     assert torch.equal(pred_g.cpu(), pred_c)
+
+
+def test_operators_launch_the_inference_kernels(cuda):
+    """``torch.ops.surya_tpu_torch.*`` on the card: one inference-form
+    launch each, the plain version's result."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    fmap = torch.randn(2, 14, 14, 256, device=cuda, generator=g)
+    kernel = torch.randn(3, 3, 256, 128, device=cuda, generator=g) * 0.05
+    bias = torch.randn(128, device=cuda, generator=g)
+    x = torch.randn(2, 5376, device=cuda, generator=g)
+    w1 = torch.randn(2688, 5376, device=cuda, generator=g) * 0.02
+    b1 = torch.randn(2688, device=cuda, generator=g)
+    w2 = torch.randn(8, 2688, device=cuda, generator=g) * 0.02
+    b2 = torch.randn(8, device=cuda, generator=g)
+    for mod, op, plain, args in (
+            (tquad, torch.ops.surya_tpu_torch.quadrant_process,
+             tquad.quadrant_process_plain, (fmap, kernel, bias)),
+            (thead, torch.ops.surya_tpu_torch.fusion_head,
+             thead.fusion_head_plain, (x, w1, b1, w2, b2))):
+        before = (mod.launches, mod.training_launches)
+        got = op(*args)
+        assert (mod.launches, mod.training_launches) == (before[0] + 1,
+                                                         before[1])
+        assert _rel_err(got, plain(*args)) <= 1e-4
+
+
+def test_exported_artifact_on_the_card(cuda, tmp_path):
+    """An f32 artifact traced on the card: the Predictor's probabilities
+    (1e-5) with one launch of each kernel a chunk; loaded on the CPU, the
+    plain versions' (1e-4). ``cost_analysis`` launches nothing."""
+    from surya_tpu_torch.infer.serve import export_model, load_exported
+
+    cfg = ModelConfig(name="quadtree", num_classes=5,
+                      compute_dtype="float32")
+    state = get_model(cfg, image_size=64).state_dict()
+    rng = np.random.default_rng(0)
+    raw = rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
+    feats = rng.normal(size=(4, 47)).astype(np.float32)
+    path = str(tmp_path / "q.pt2")
+    export_model(cfg, state, path, batch_size=4, image_size=64,
+                 input_dtype="uint8")
+    loaded = load_exported(path)
+    before = (tquad.launches, thead.launches, tquad.training_launches,
+              thead.training_launches)
+    preds, probs = loaded.call(raw, feats)
+    assert (tquad.launches, thead.launches, tquad.training_launches,
+            thead.training_launches) == (before[0] + 1, before[1] + 1,
+                                         *before[2:])
+    predictor = Predictor(cfg, state, batch_size=4, image_size=64,
+                          input_dtype="uint8")
+    want_preds, want_probs = predictor.predict(raw, feats)
+    assert np.abs(probs.cpu().numpy() - want_probs).max() <= 1e-5
+    assert np.array_equal(preds.cpu().numpy(), want_preds)
+    _, cpu_probs = load_exported(path, device="cpu").call(raw, feats)
+    assert (cpu_probs - probs.cpu()).abs().max().item() <= 1e-4
+    # the flop count of a chunk is the CPU's (fake tensors, no launch)
+    launched = (tquad.launches, thead.launches)
+    assert predictor.cost_analysis() == Predictor(
+        cfg, state, batch_size=4, image_size=64, input_dtype="uint8",
+        device="cpu").cost_analysis()
+    assert (tquad.launches, thead.launches) == launched
