@@ -79,6 +79,24 @@ processes that run it):
   against ``Predictor.predict`` in turns; ``export-torch`` and back
   through ``load_reference_state_dict``, bit-equal; ``check`` exits 0
   naming the card and the three kernel builds.
+- **generate**: the generative augmentation tier at published widths,
+  weights from seed 0 (no pretrained file ships). U²-Net ``u2net`` and
+  ``u2netp`` at 320²: f32 card vs CPU (the fused map and the alpha, 1e-4),
+  bf16 frames/s at batch 16, ``process_pipeline`` over a renamed tree of
+  2 clips × 6 frames of 480×640 (12 RGBA PNGs; a second run skips them).
+  The zero123plus UNet (865,910,724 parameters) and the SD VAE
+  (83,653,863): one write + read pass on a 128-px tile's latents and the
+  VAE at 256 px, f32 card vs CPU (1e-4, TF32 off), bf16 vs f32 reported.
+  The published trajectory in bf16: ``zero123plus_unet_generate_fn``
+  (320-px tiles, a 3×2 grid, a 120×80 latent, 75 Euler-Ancestral steps,
+  two UNet passes each) through ``process_augmentation`` on 2 clean PNGs:
+  12 finite views, a resume that generates none, s/image, UNet
+  forwards/s, peak memory, flops per step (``FlopCounterMode``), one
+  profiled step's conv / attention / GroupNorm split. The TinyDenoiser
+  path over the 12 PNGs (72 views). Then the clean frames as view 00,
+  ``build_sequence_dataset`` (28 windows) and two ``cnn-lstm`` train steps
+  at batch 16: exactly 2 training-form head launches, each held against
+  its plain version on its own inputs.
 
 It times kernels, serving and the train step with CUDA events; each
 main-path kernel in turns with its library yardstick, after the same L2
@@ -99,6 +117,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2306,19 +2325,24 @@ def pose_checkpoint(card, reps=5):
 
 @contextlib.contextmanager
 def recording_kernels():
-    """Inside: every call of the two kernel wrappers from the flagship's
-    model is kept, with its arguments and output (launch counts as
-    before: the wrappers are called as they are). → {name: [(args,
-    kwargs, out)]}."""
+    """Inside: every call of the two kernel wrappers from the models'
+    common layers is kept, with copies of its arguments (as they were at
+    the call) and its output (launch counts as before: the wrappers are
+    called as they are). → {name: [(args, kwargs, out)]}."""
     from surya_tpu_torch.models import common
     from surya_tpu_torch.models.spatial import quadtree
 
     calls = {"quadrant": [], "fusion_head": []}
 
+    def copied(a):   # a train step updates the weights in place later
+        return a.detach().clone() if torch.is_tensor(a) else a
+
     def keep(fn, seen):
         def call(*args, **kw):
             out = fn(*args, **kw)
-            seen.append((args, kw, out))
+            seen.append((tuple(map(copied, args)),
+                         {k: copied(v) for k, v in kw.items()},
+                         out.detach()))
             return out
         return call
 
@@ -2337,9 +2361,9 @@ def hold_recorded(calls, quadrant, fusion_head):
     reads them), to TOL of that dtype; every call must be the bf16
     inference form on the card. → per kernel: calls, shape, dtype and
     the largest errors."""
-    plain = {"quadrant": lambda x, w, b: quadrant.quadrant_process_plain(
+    plain = {"quadrant": lambda x, w, b, **_: quadrant.quadrant_process_plain(
                  x.float(), w.to(x.dtype).float(), b.float()),
-             "fusion_head": lambda x, w1, b1, w2, b2:
+             "fusion_head": lambda x, w1, b1, w2, b2, **_:
                  fusion_head.fusion_head_plain(
                      x.float(), w1.to(x.dtype).float(), b1.float(),
                      w2.to(x.dtype).float(), b2.float())}
@@ -2353,16 +2377,17 @@ def hold_recorded(calls, quadrant, fusion_head):
     return held
 
 
-def _hold(name, seen, plain, failed):
+def _hold(name, seen, plain, failed, train=False):
     row = {"calls": len(seen), "max_abs_err": 0.0, "max_rel_err": 0.0}
+    form = "training" if train else "inference"
     for args, kw, out in seen:
         x = args[0]
         dname = str(x.dtype).removeprefix("torch.")
         row.update(shape=list(x.shape), dtype=dname, tol=TOL[dname])
         if not (x.is_cuda and out.is_cuda and x.dtype == torch.bfloat16
-                and not kw.get("rate")):
-            failed.append((name, "not the bf16 inference form on the card"))
-        err, rel = compare(out, plain(*args))
+                and bool(kw.get("rate")) == train):
+            failed.append((name, f"not the bf16 {form} form on the card"))
+        err, rel = compare(out, plain(*args, **kw))
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["max_rel_err"] = max(row["max_rel_err"], rel)
         if not (rel <= TOL[dname] and torch.isfinite(out.float()).all()):
@@ -2790,6 +2815,602 @@ def export_phase(quadrant, fusion_head, card):
     return {name: sum(runs[k]["launches"][name] for k in want_launches)
             for name in want_launches["bf16"]}
 
+# ---------------------------------------------------------------------------
+# generate: the generative augmentation tier
+# ---------------------------------------------------------------------------
+
+GEN_DIR = os.path.join(REPO, "build", "chip_smoke_generate")
+GEN_DEV = "cuda"   # the phase's device (a CPU rehearsal sets "cpu")
+GEN_CLIPS = (("video_clip_001", "cobra pose"), ("video_clip_002",
+                                                "plank pose"))
+GEN_FRAMES, GEN_FRAME_HW = 6, (480, 640)
+GEN_TILE, GEN_STEPS, GEN_ROWS, GEN_COLS = 320, 75, 3, 2
+GEN_IMAGES = 2                     # clean PNGs through the zero123plus path
+PARITY_BANK, PARITY_LATENT = (16, 16), (48, 32)   # a 128-px tile's latents
+VAE_PARITY_PX = 256
+U2NET_SIZE, U2NET_BATCH, U2NET_RUNS = 320, 16, 5
+PARAMS = {"unet": 865_910_724, "vae": 83_653_863, "u2net": 44_009_869,
+          "u2netp": 1_131_181}      # jax.eval_shape of the JAX package's
+CHAIN_BATCH, CHAIN_STEPS, CHAIN_T, CHAIN_STRIDE = 16, 2, 4, 2
+GEN_NAME = re.compile(r"video_clip_00[12]_frame_0000[1-6]\.png")
+
+
+def gen_renamed_tree(root):
+    """The train split of a renamed tree: one clip per label
+    (``video_clip_001`` cobra, ``video_clip_002`` plank), 6 frames of
+    480×640 each (a bright subject on a noisy ground, PNG), with the
+    frame maps ``rename_frames`` writes and a label CSV. → (renamed
+    root, [label CSV])."""
+    import csv
+
+    from PIL import Image
+
+    from surya_tpu_torch.data.prep.frame_renaming import rename_frames
+
+    rng = np.random.default_rng(0)
+    h, w = GEN_FRAME_HW
+    rows = []
+    for clip, label in GEN_CLIPS:
+        raw = os.path.join(root, "raw", "train", clip)
+        os.makedirs(raw, exist_ok=True)
+        for k in range(GEN_FRAMES):
+            frame = rng.integers(0, 96, (h, w, 3), dtype=np.uint8)
+            top, left = 80 + 10 * k, 200 + 15 * k
+            frame[top:top + 300, left:left + 160] = rng.integers(
+                160, 256, 3, dtype=np.uint8)
+            name = f"{clip}-{k + 1:05d}_png.rf.{k}.png"
+            Image.fromarray(frame).save(os.path.join(raw, name))
+            rows.append({"filename": name, "label": label})
+    label_csv = os.path.join(root, "labels.csv")
+    with open(label_csv, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=["filename", "label"])
+        writer.writeheader()
+        writer.writerows(rows)
+    renamed = os.path.join(root, "renamed")
+    rename_frames(os.path.join(root, "raw"), renamed)
+    return renamed, [label_csv]
+
+
+def gen_u2net(card):
+    """U²-Net ``u2net`` and ``u2netp`` at 320², weights from seed 0: f32
+    card vs CPU on 2 images (the fused map on normalised input, and the
+    alpha of ``saliency`` on uint8 frames), 1e-4 relative; bf16 frames/s
+    of the saliency core at batch 16; then ``process_pipeline`` with
+    ``u2net_remove_fn(variant="u2net")`` over the renamed tree: 12 RGBA
+    PNGs named ``video_clip_00N_frame_0000K.png``, per-frame wall time,
+    and a second run that skips all 12. → the clean root."""
+    from PIL import Image
+
+    from surya_tpu_torch.augmentgen import background
+    from surya_tpu_torch.models.common import (
+        cast_matmul_weights,
+        count_parameters,
+        load_state,
+        seeded,
+    )
+    from surya_tpu_torch.models.segmentation.u2net import U2Net, saliency
+
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.integers(
+        0, 256, (2, U2NET_SIZE, U2NET_SIZE, 3), dtype=np.uint8))
+    x = torch.from_numpy(rng.normal(size=(2, U2NET_SIZE, U2NET_SIZE, 3))
+                         .astype(np.float32))
+    batch = torch.from_numpy(rng.integers(
+        0, 256, (U2NET_BATCH, U2NET_SIZE, U2NET_SIZE, 3),
+        dtype=np.uint8)).to(GEN_DEV)
+    rows = {}
+    for variant in ("u2net", "u2netp"):
+        cpu = seeded(lambda v=variant: U2Net(v), 0, "cpu").eval()
+        if count_parameters(cpu) != PARAMS[variant]:
+            raise AssertionError(f"{variant}: {count_parameters(cpu)} "
+                                 f"parameters")
+        gpu = copy.deepcopy(cpu).to(GEN_DEV)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            want_fused, _ = cpu(x)
+            want_alpha = saliency(cpu, frames, U2NET_SIZE)
+            cpu_s = time.perf_counter() - t0
+            got_fused, _ = gpu(x.to(GEN_DEV))
+            got_alpha = saliency(gpu, frames.to(GEN_DEV), U2NET_SIZE)
+        fused_rel = compare(got_fused.cpu(), want_fused)[1]
+        alpha_rel = compare(got_alpha.cpu(), want_alpha)[1]
+        b16 = cast_matmul_weights(load_state(
+            lambda v=variant: U2Net(v, torch.bfloat16), gpu.state_dict(),
+            GEN_DEV), torch.bfloat16).eval()
+        del gpu
+        times = []
+        with torch.inference_mode():
+            for i in range(U2NET_RUNS + 2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                alpha = saliency(b16, batch, U2NET_SIZE)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    times.append(time.perf_counter() - t0)
+        rows[variant] = {
+            "parameters": PARAMS[variant], "cpu_f32_s": cpu_s,
+            "f32_card_vs_cpu_fused_rel": fused_rel,
+            "f32_card_vs_cpu_alpha_rel": alpha_rel, "tol": TOL["float32"],
+            "bf16_batch": U2NET_BATCH,
+            "bf16_frames_per_s_median":
+                U2NET_BATCH / statistics.median(times),
+            "bf16_finite": bool(torch.isfinite(alpha).all())}
+        del b16
+        if not (fused_rel <= TOL["float32"] and alpha_rel <= TOL["float32"]
+                and rows[variant]["bf16_finite"]):
+            raise AssertionError(f"U²-Net {variant}: {rows[variant]}")
+
+    renamed, csvs = gen_renamed_tree(GEN_DIR)
+    clean = os.path.join(GEN_DIR, "clean")
+    remove = background.u2net_remove_fn(variant="u2net", size=U2NET_SIZE,
+                                        device=GEN_DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = background.process_pipeline(renamed, csvs, clean,
+                                        remove_fn=remove)
+    wall = time.perf_counter() - t0
+    again = background.process_pipeline(renamed, csvs, clean,
+                                        remove_fn=remove)
+    n = len(GEN_CLIPS) * GEN_FRAMES
+    names = []
+    for _, label in GEN_CLIPS:
+        for name in sorted(os.listdir(os.path.join(clean, "train", label))):
+            with Image.open(os.path.join(clean, "train", label, name)) as im:
+                ok = (im.mode == "RGBA"
+                      and im.size == GEN_FRAME_HW[::-1])
+            names.append((name, ok))
+    row = {"phase": "generate_u2net", **rows,
+           "pipeline": {"variant": "u2net", "frames": n,
+                        "frame_hw": list(GEN_FRAME_HW), "first": first,
+                        "resumed": again, "wall_s": wall,
+                        "f32_s_per_frame": wall / n}, **card}
+    emit(row)
+    if not (first == {"train": {"done": n, "skipped": 0}}
+            and again == {"train": {"done": 0, "skipped": n}}
+            and len(names) == n
+            and all(ok and GEN_NAME.fullmatch(nm) for nm, ok in names)):
+        raise AssertionError(f"process_pipeline: {first} {again} {names}")
+    return clean
+
+
+def two_pass(unet, cond, x, t, ehs):
+    """One write pass over ``cond`` and one read pass over ``x`` with its
+    bank, as the reference denoiser makes them."""
+    _, bank = unet(cond, t, ehs)
+    return unet(x, t, ehs, refs=bank)[0]
+
+
+def gen_models(card):
+    """The zero123plus UNet and the SD VAE at their published widths,
+    weights from seed 0 on the CPU: parameter counts; f32 card vs CPU of
+    one write + read pass on a 128-px tile's latents (a 16×16 bank, a
+    48×32 latent, a (1, 77, 1024) context from seed 0), relative L2 1e-4
+    with TF32 off, and bf16 against f32 on the card (reported); the VAE's
+    f32 encode and decode at 256 px, 1e-4. → the bf16 UNet and VAE on the
+    card and the context."""
+    from surya_tpu_torch.models.common import (
+        cast_matmul_weights,
+        count_parameters,
+        load_state,
+        seeded,
+    )
+    from surya_tpu_torch.models.diffusion.unet_cond import (
+        UNet2DCondition,
+        zero123plus_config,
+    )
+    from surya_tpu_torch.models.diffusion.vae import (
+        AutoencoderKL,
+        sd_vae_config,
+    )
+
+    rng = np.random.default_rng(0)
+    ehs = torch.from_numpy(rng.normal(size=(1, 77, 1024)).astype(np.float32))
+    cond = torch.from_numpy(rng.normal(size=(1, *PARITY_BANK, 4))
+                            .astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(1, *PARITY_LATENT, 4))
+                         .astype(np.float32))
+    t = torch.tensor([499.0])
+    t0 = time.perf_counter()
+    cpu = seeded(lambda: UNet2DCondition(zero123plus_config(torch.float32)),
+                 0, "cpu").eval()
+    init_s = time.perf_counter() - t0
+    n_unet = count_parameters(cpu)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = two_pass(cpu, cond, x, t, ehs)
+        cpu_s = time.perf_counter() - t0
+        gpu = cpu.to(GEN_DEV)          # moved: the CPU run is done
+        dev = [a.to(GEN_DEV) for a in (cond, x, t, ehs)]
+        got = two_pass(gpu, *dev)
+        unet = cast_matmul_weights(load_state(
+            lambda: UNet2DCondition(zero123plus_config()), gpu.state_dict(),
+            GEN_DEV), torch.bfloat16).eval()
+        del gpu, cpu
+        got16 = two_pass(unet, *dev)
+    unet_rel = rel_l2(got.cpu(), want)
+    bf16_rel = rel_l2(got16.float(), got)
+
+    vcpu = seeded(lambda: AutoencoderKL(sd_vae_config(torch.float32)), 0,
+                  "cpu").eval()
+    n_vae = count_parameters(vcpu)
+    px = torch.from_numpy(rng.uniform(
+        -1, 1, (1, VAE_PARITY_PX, VAE_PARITY_PX, 3)).astype(np.float32))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        mean, logvar = vcpu.encode(px)
+        rec = vcpu.decode(mean)
+        vae_cpu_s = time.perf_counter() - t0
+        vgpu = vcpu.to(GEN_DEV)
+        gmean, glogvar = vgpu.encode(px.to(GEN_DEV))
+        grec = vgpu.decode(mean.to(GEN_DEV))
+        vae = cast_matmul_weights(load_state(
+            lambda: AutoencoderKL(sd_vae_config()), vgpu.state_dict(),
+            GEN_DEV), torch.bfloat16).eval()
+        del vgpu, vcpu
+    vae_rel = {"mean": compare(gmean.cpu(), mean)[1],
+               "logvar": compare(glogvar.cpu(), logvar)[1],
+               "decode": compare(grec.cpu(), rec)[1]}
+    row = {"phase": "generate_models",
+           "unet": {"parameters": n_unet, "cpu_init_s": init_s,
+                    "bank_hw": list(PARITY_BANK),
+                    "latent_hw": list(PARITY_LATENT), "timestep": 499.0,
+                    "cpu_f32_two_pass_s": cpu_s,
+                    "f32_card_vs_cpu_rel_l2": unet_rel,
+                    "tol": TOL["float32"], "bf16_vs_f32_rel_l2": bf16_rel},
+           "vae": {"parameters": n_vae, "px": VAE_PARITY_PX,
+                   "cpu_f32_s": vae_cpu_s,
+                   "f32_card_vs_cpu_rel": vae_rel, "tol": TOL["float32"]},
+           **card}
+    emit(row)
+    if not (n_unet == PARAMS["unet"] and n_vae == PARAMS["vae"]
+            and unet_rel <= TOL["float32"]
+            and max(vae_rel.values()) <= TOL["float32"]
+            and torch.isfinite(got16).all()):
+        raise AssertionError(f"generate models: {row}")
+    return unet, vae, ehs.to(GEN_DEV)
+
+
+def step_flops(unet, ehs, lat_shape, cond_shape) -> int:
+    """The operations of one denoiser step (write + read pass) at the
+    published shapes, counted by ``FlopCounterMode`` on fake tensors, as
+    ``Predictor.cost_analysis`` counts them; nothing runs on the card."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from surya_tpu_torch.models.diffusion import (
+        EulerAncestralSchedule,
+        reference_conditioned_denoiser,
+    )
+
+    schedule = EulerAncestralSchedule.create(
+        GEN_STEPS, timestep_spacing="trailing",
+        prediction_type="v_prediction")
+    schedule.sigma(0, ehs)    # the table as a real tensor, made first
+    counter = FlopCounterMode(display=False)
+    with (torch.inference_mode(),
+          FakeTensorMode(allow_non_fake_inputs=True), counter):
+        cond = torch.empty(cond_shape, device=GEN_DEV)
+        denoiser = reference_conditioned_denoiser(
+            unet, schedule, ehs, cond,
+            cond_noise=lambda i: torch.empty(cond_shape, device=GEN_DEV))
+        denoiser(torch.empty(lat_shape, device=GEN_DEV),
+                 torch.empty((), device=GEN_DEV), 0)
+    return counter.get_total_flops()
+
+
+@contextlib.contextmanager
+def labelled_ops():
+    """Inside: the UNet's attention core (the two products and the
+    softmax), every GroupNorm and every conv run under a
+    ``record_function`` range, so a profile attributes their kernels."""
+    from torch.profiler import record_function
+
+    from surya_tpu_torch.models import norms
+    from surya_tpu_torch.models.backbones import resnet
+    from surya_tpu_torch.models.diffusion import unet_cond
+
+    def labelled(name, fn):
+        def call(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    saved = (unet_cond.attention, norms.GroupNorm.forward,
+             resnet.Conv.forward)
+    unet_cond.attention = labelled("split::attention", saved[0])
+    norms.GroupNorm.forward = labelled("split::group_norm", saved[1])
+    resnet.Conv.forward = labelled("split::conv", saved[2])
+    try:
+        yield
+    finally:
+        (unet_cond.attention, norms.GroupNorm.forward,
+         resnet.Conv.forward) = saved
+
+
+def step_split(unet, ehs, lat_shape, cond_shape) -> dict:
+    """One profiled denoiser step (write + read pass) at the published
+    shapes: device ms of the convolutions, the attention core and the
+    GroupNorms (the kernels launched inside each labelled range), and of
+    every kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from surya_tpu_torch.models.diffusion import (
+        EulerAncestralSchedule,
+        reference_conditioned_denoiser,
+    )
+
+    schedule = EulerAncestralSchedule.create(
+        GEN_STEPS, timestep_spacing="trailing",
+        prediction_type="v_prediction")
+    g = torch.Generator(GEN_DEV).manual_seed(1)
+    cond = torch.randn(cond_shape, generator=g, device=GEN_DEV)
+    lat = torch.randn(lat_shape, generator=g, device=GEN_DEV)
+    denoiser = reference_conditioned_denoiser(unet, schedule, ehs, cond,
+                                              generator=g)
+    t = schedule.table("timesteps", GEN_DEV)[0]
+    with torch.inference_mode(), labelled_ops():
+        denoiser(lat, t, 0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            denoiser(lat, t, 0)
+            torch.cuda.synchronize()
+    split = {"conv": 0.0, "attention": 0.0, "group_norm": 0.0}
+    for e in prof.events():
+        if (e.device_type == DeviceType.CPU
+                and e.name.startswith("split::")):
+            split[e.name.removeprefix("split::")] += e.device_time_total / 1e3
+    busy = sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+    return {"device_ms": busy, "ms": split,
+            "share": {k: (v / busy if busy else None)
+                      for k, v in split.items()}}
+
+
+def gen_trajectory(unet, vae, ehs, clean, card):
+    """The published trajectory, bf16 on the card:
+    ``zero123plus_unet_generate_fn`` (320-px tile, 3×2 grid, 75 steps,
+    seed 0) through ``process_augmentation`` on the first clean PNG of
+    each label: 12 finite views of 320×320, then a resumed run that
+    generates none. Seconds per image, UNet forwards/s, peak memory, the
+    flops of a step and the TFLOP/s they imply, one profiled step's
+    split."""
+    import shutil
+
+    from PIL import Image
+
+    from surya_tpu_torch.augmentgen import multiview
+
+    src = os.path.join(GEN_DIR, "clean_two", "train")
+    for _, label in GEN_CLIPS:
+        os.makedirs(os.path.join(src, label), exist_ok=True)
+        first = sorted(os.listdir(os.path.join(clean, "train", label)))[0]
+        shutil.copy(os.path.join(clean, "train", label, first),
+                    os.path.join(src, label, first))
+    out = os.path.join(GEN_DIR, "views_zero123plus")
+    gen = multiview.zero123plus_unet_generate_fn(
+        unet, vae, ehs, num_steps=GEN_STEPS, tile=GEN_TILE, rows=GEN_ROWS,
+        cols=GEN_COLS, seed=0)
+    finite = []
+    to_image = multiview.to_image
+
+    def checked(pixels):
+        finite.append(bool(torch.isfinite(pixels).all()))
+        return to_image(pixels)
+
+    multiview.to_image = checked
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        report = multiview.process_augmentation(
+            os.path.dirname(src), out, generate_fn=gen, num_steps=GEN_STEPS,
+            rows=GEN_ROWS, cols=GEN_COLS, splits=("train",))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        again = multiview.process_augmentation(
+            os.path.dirname(src), out, generate_fn=gen, rows=GEN_ROWS,
+            cols=GEN_COLS, splits=("train",))
+    finally:
+        multiview.to_image = to_image
+    views = []
+    for _, label in GEN_CLIPS:
+        for name in sorted(os.listdir(os.path.join(out, "train", label))):
+            with Image.open(os.path.join(out, "train", label, name)) as im:
+                views.append((name, im.size))
+    factor = 2 ** (len(vae.config.block_out_channels) - 1)
+    lat_shape = (1, GEN_ROWS * GEN_TILE // factor,
+                 GEN_COLS * GEN_TILE // factor, 4)
+    cond_shape = (1, GEN_TILE // factor, GEN_TILE // factor, 4)
+    flops = step_flops(unet, ehs, lat_shape, cond_shape)
+    split = step_split(unet, ehs, lat_shape, cond_shape)
+    forwards = 2 * GEN_STEPS * GEN_IMAGES
+    tflops = flops * GEN_STEPS * GEN_IMAGES / wall / 1e12
+    # the profiled step's device time against the trajectory's wall time
+    # per step (which also holds the VAE and the PNGs)
+    step_wall_ms = wall / (GEN_STEPS * GEN_IMAGES) * 1e3
+    row = {"phase": "generate_zero123plus", "dtype": "bfloat16",
+           "tile": GEN_TILE, "grid": [GEN_ROWS, GEN_COLS],
+           "latent_hw": list(lat_shape[1:3]), "steps": GEN_STEPS,
+           "images": GEN_IMAGES, "report": report, "resumed": again,
+           "views": len(views), "finite": finite, "wall_s": wall,
+           "s_per_image": wall / GEN_IMAGES,
+           "unet_forwards_per_s": forwards / wall,
+           "peak_memory_bytes": peak, "flops_per_step": flops,
+           "implied_tflop_s": tflops,
+           "implied_share_of_989_tflop_s": tflops / 989.0,
+           "profiled_step": split, "wall_ms_per_step": step_wall_ms,
+           "device_idle_share": max(0.0, 1.0 - split["device_ms"]
+                                    / step_wall_ms), **card}
+    emit(row)
+    n_views = GEN_IMAGES * GEN_ROWS * GEN_COLS
+    if not (report["train"]["generated"] == GEN_IMAGES
+            and again["train"] == {"generated": 0, "skipped": GEN_IMAGES,
+                                   "views_per_image": GEN_ROWS * GEN_COLS}
+            and len(views) == n_views
+            and all(s == (GEN_TILE, GEN_TILE) for _, s in views)
+            and finite == [True] * GEN_IMAGES):
+        raise AssertionError(f"zero123plus trajectory: {row} {views}")
+    return row
+
+
+def gen_tiny(clean, card):
+    """The pixel-space path: ``torch_diffusion_generate_fn`` (TinyDenoiser
+    from seed 0, the same 3×2 grid of 320-px tiles, 75 steps) over all 12
+    clean PNGs: 72 views; seconds per image. → the view tree."""
+    from surya_tpu_torch.augmentgen import multiview
+
+    out = os.path.join(GEN_DIR, "views_tiny")
+    gen = multiview.torch_diffusion_generate_fn(
+        num_steps=GEN_STEPS, tile=GEN_TILE, rows=GEN_ROWS, cols=GEN_COLS,
+        seed=0, device=GEN_DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = multiview.process_augmentation(
+        clean, out, generate_fn=gen, num_steps=GEN_STEPS, rows=GEN_ROWS,
+        cols=GEN_COLS, splits=("train",))
+    wall = time.perf_counter() - t0
+    n = len(GEN_CLIPS) * GEN_FRAMES
+    views = sum(len(os.listdir(os.path.join(out, "train", label)))
+                for _, label in GEN_CLIPS)
+    row = {"phase": "generate_tiny", "tile": GEN_TILE, "steps": GEN_STEPS,
+           "images": n, "report": report, "views": views, "wall_s": wall,
+           "s_per_image": wall / n, **card}
+    emit(row)
+    if not (report["train"]["generated"] == n
+            and views == n * GEN_ROWS * GEN_COLS):
+        raise AssertionError(f"TinyDenoiser path: {row}")
+    return out
+
+
+def hold_head_train(calls, fusion_head):
+    """Each recorded launch of the head's training form against its plain
+    version on the same inputs, the keep mask rebuilt from the launch's
+    own seed (Philox), to bf16's TOL."""
+    def plain(x, w1, b1, w2, b2, *, rate, seed):
+        keep = (fusion_head.philox_bits(int(seed.reshape(-1)[0]),
+                                        x.shape[0], w1.shape[0], x.device)
+                >= fusion_head.dropout_threshold(rate))
+        return fusion_head.fusion_head_plain(
+            x.float(), w1.to(x.dtype).float(), b1.float(),
+            w2.to(x.dtype).float(), b2.float(), rate, keep)
+
+    failed = []
+    with torch.inference_mode():
+        row = _hold("fusion_head_train", calls["fusion_head"], plain, failed,
+                    train=True)
+    if failed or calls["quadrant"]:
+        raise AssertionError(f"the chain's head launches: {row} {failed}")
+    return row
+
+
+def gen_chain(views, clean, quadrant, fusion_head, card):
+    """The counterpart of ``tests/test_multiview_integration.py`` on the
+    card: the clean frames copied in as view 00, ``build_sequence_dataset``
+    (T 4, stride 2, 224 px) with seeded 47-feature ``.npy`` files: 2
+    windows × 7 views × 2 labels = 28 train windows; two ``cnn-lstm``
+    train steps at batch 16 (bf16, dropout 0.5), every launch counted and
+    each of the head's held against its plain version. → the head's
+    launches by form."""
+    import shutil
+
+    from surya_tpu_torch.core.config import get_preset
+    from surya_tpu_torch.data.sequences import (
+        SequenceDataSource,
+        build_sequence_dataset,
+    )
+    from surya_tpu_torch.models import get_model
+    from surya_tpu_torch.train import create_train_state, make_train_step
+    from surya_tpu_torch.train.steps import to_device
+
+    rng = np.random.default_rng(0)
+    flat = os.path.join(GEN_DIR, "flat")
+    for _, label in GEN_CLIPS:
+        os.makedirs(os.path.join(flat, "train", label), exist_ok=True)
+        for name in os.listdir(os.path.join(clean, "train", label)):
+            base = os.path.splitext(name)[0]
+            shutil.copy(os.path.join(clean, "train", label, name),
+                        os.path.join(views, "train", label,
+                                     f"{base}_view_00.png"))
+            clip, frame = base.split("_frame_")
+            np.save(os.path.join(flat, "train", label,
+                                 f"{clip}_frame_{frame}_frame_{frame}.npy"),
+                    rng.normal(size=47).astype(np.float32))
+    cfg = get_preset("cnn-lstm").override({
+        "data.batch_size": str(CHAIN_BATCH), "model.num_classes": "2",
+        "data.seq_root": os.path.join(GEN_DIR, "seq")})
+    size = cfg.data.image_size
+    t0 = time.perf_counter()
+    counts = build_sequence_dataset(views, flat, cfg.data.seq_root,
+                                    seq_len=CHAIN_T, stride=CHAIN_STRIDE,
+                                    image_size=size, splits=("train",))
+    build_s = time.perf_counter() - t0
+    want = 2 * (GEN_ROWS * GEN_COLS + 1) * len(GEN_CLIPS)
+    if counts != {"train": want}:
+        raise AssertionError(f"sequence windows: {counts}, want {want}")
+    data = SequenceDataSource(cfg.data, splits=("train",),
+                              pin_memory=GEN_DEV != "cpu")
+    model = get_model(cfg.model, image_size=size, seed=0)
+    state, tx = create_train_state(model, cfg, device=GEN_DEV)
+    step = make_train_step(model, tx, cfg)
+    # 28 windows make one full batch of 16 an epoch (the rest is dropped)
+    batches = (b for epoch in range(CHAIN_STEPS)
+               for b in data.train_batches(epoch))
+    losses = []
+    with recording_kernels() as calls:
+        reset_launches(quadrant, fusion_head)
+        for i in range(CHAIN_STEPS):
+            batch = data.device_transform(
+                "train", torch.Generator(GEN_DEV).manual_seed(i),
+                to_device(next(batches), GEN_DEV))
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        launches = read_launches(quadrant, fusion_head)
+    held = hold_head_train(calls, fusion_head)
+    row = {"phase": "generate_chain", "windows": counts, "seq_len": CHAIN_T,
+           "stride": CHAIN_STRIDE, "image_size": size,
+           "build_sequence_dataset_s": build_s, "batch": CHAIN_BATCH,
+           "steps": CHAIN_STEPS, "losses": losses, "launches": launches,
+           "head_train_vs_plain": held, **card}
+    emit(row)
+    if not (np.isfinite(losses).all()
+            and launches == {"quadrant": 0, "quadrant_train": 0,
+                             "fusion_head": 0,
+                             "fusion_head_train": CHAIN_STEPS}
+            and held["calls"] == CHAIN_STEPS
+            and held["shape"] == [CHAIN_BATCH, 256]):
+        raise AssertionError(f"the chain: {row}")
+    return launches
+
+
+def generate_phase(quadrant, fusion_head, card):
+    """U²-Net background removal → the zero123plus UNet and SD VAE checked
+    against the CPU → the published 75-step trajectory → the TinyDenoiser
+    path → sequence windows → two ``cnn-lstm`` train steps. → the chain's
+    launches per kernel form."""
+    import shutil
+
+    shutil.rmtree(GEN_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    clean = gen_u2net(card)
+    torch.cuda.empty_cache()
+    unet, vae, ehs = gen_models(card)
+    torch.cuda.empty_cache()
+    traj = gen_trajectory(unet, vae, ehs, clean, card)
+    del unet, vae
+    torch.cuda.empty_cache()
+    views = gen_tiny(clean, card)
+    launches = gen_chain(views, clean, quadrant, fusion_head, card)
+    emit({"phase": "generate_summary", "seconds": time.perf_counter() - t0,
+          "s_per_image": traj["s_per_image"],
+          "unet_forwards_per_s": traj["unet_forwards_per_s"],
+          "peak_memory_bytes": traj["peak_memory_bytes"],
+          "launches": launches, **card})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2845,6 +3466,8 @@ def main() -> int:
     pose_launches = pose_phase(quadrant, fusion_head, card)
     torch.cuda.empty_cache()
     export_launches = export_phase(quadrant, fusion_head, card)
+    torch.cuda.empty_cache()
+    generate_launches = generate_phase(quadrant, fusion_head, card)
 
     # name → (source, replaces, launches on its path, max |kernel - plain|
     # at the shape that path gives it, bf16)
@@ -2868,9 +3491,9 @@ def main() -> int:
         "affine_relu": ("stem_bn", "surya_tpu/ops/pallas/stem_bn.py:71",
                         stem_launches["affine_relu"],
                         stem_times["affine_relu"])}
-    # launches on every path: serve, train, stem probe, spatial and
-    # temporal in this process, the loop's (and the spatial and temporal
-    # CLI runs') in the CLI children
+    # launches on every path: serve, train, stem probe, spatial, temporal
+    # and generate in this process, the loop's (and the spatial and
+    # temporal CLI runs') in the CLI children
     paths = {
         "quadrant": {"serve": serve_launches["quadrant"],
                      "loop": loop_launches["quadrant"]["inference"],
@@ -2892,7 +3515,8 @@ def main() -> int:
             "train": train_launches["fusion_head"],
             "loop": loop_launches["fusion_head"]["training"],
             "spatial": spatial_launches["fusion_head_train"],
-            "temporal": temporal_launches["fusion_head_train"]},
+            "temporal": temporal_launches["fusion_head_train"],
+            "generate": generate_launches["fusion_head_train"]},
         "channel_stats": {"stem_probe": stem_launches["channel_stats"],
                           "loop": loop_launches["channel_stats"],
                           "temporal": temporal_launches["channel_stats"]},

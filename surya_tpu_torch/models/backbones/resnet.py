@@ -89,11 +89,13 @@ class Conv(nn.Module):
     one int for every side or flax's ((top, bottom), (left, right))."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 padding=0, bias: bool = False, groups: int = 1):
+                 padding=0, bias: bool = False, groups: int = 1,
+                 dilation: int = 1):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin // groups, k, k))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.stride, self.groups, self.pad = stride, groups, None
+        self.dilation = dilation
         if isinstance(padding, int):
             self.padding = padding
         else:   # F.pad order: (left, right, top, bottom)
@@ -111,7 +113,7 @@ class Conv(nn.Module):
             x = F.pad(x, self.pad)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
-                        self.padding, 1, self.groups)
+                        self.padding, self.dilation, self.groups)
 
 
 class BatchNorm(nn.Module):

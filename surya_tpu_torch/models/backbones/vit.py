@@ -38,26 +38,7 @@ import torch.nn.functional as F
 
 from surya_tpu_torch.models.backbones.resnet import Conv, nchw, nhwc
 from surya_tpu_torch.models.common import dense, flax_dropout, reset_dense
-
-
-class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm(dtype=dtype)``: eps 1e-6, f32 statistics and
-    affine, the output in ``dtype``."""
-
-    def __init__(self, dim: int, dtype=torch.bfloat16, eps: float = 1e-6):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
-        self.dtype, self.eps = dtype, eps
-
-    def reset_parameters(self, generator=None):
-        with torch.no_grad():
-            self.weight.fill_(1.0)
-            self.bias.zero_()
-
-    def forward(self, x):
-        return F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
-                            self.bias.float(), self.eps).to(self.dtype)
+from surya_tpu_torch.models.norms import LayerNorm
 
 
 class MultiHeadDotProductAttention(nn.Module):

@@ -15,14 +15,21 @@ counterpart of flax's ``"dropout"`` stream), on the tensors' device.
 
 from __future__ import annotations
 
+from typing import Callable
+
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from surya_tpu_torch.models.backbones.resnet import (
+    BatchNorm,
+    Conv,
     lecun_normal_,
     reset_conv_and_norm,
 )
+from surya_tpu_torch.models.norms import GroupNorm, LayerNorm
+from surya_tpu_torch.ops import resolve_device
 from surya_tpu_torch.ops.cuda.fusion_head import fusion_head
 
 MODES = ("fusion", "image_only", "numerical_only")
@@ -159,3 +166,81 @@ def fuse_by_mode(mode: str, image_feat, num_feat):
     if mode == "numerical_only":
         return num_feat
     raise ValueError(f"bad mode {mode!r}")
+
+
+def reset_flax(module: nn.Module, generator=None) -> None:
+    """flax's init for every layer inside ``module``: lecun_normal conv and
+    Dense kernels, zero biases, norm scales 1 and biases 0, BN running
+    statistics 0 and 1."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            lecun_normal_(m.weight, m.in_features, generator)
+            if m.bias is not None:
+                with torch.no_grad():
+                    m.bias.zero_()
+        elif isinstance(m, (Conv, GroupNorm, LayerNorm, BatchNorm)):
+            m.reset_parameters(generator)
+        if isinstance(m, BatchNorm):
+            with torch.no_grad():
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+
+
+def on_meta(module: nn.Module) -> bool:
+    return any(p.is_meta for p in module.parameters())
+
+
+def seeded(build: Callable[[], nn.Module], seed: int = 0,
+           device=None) -> nn.Module:
+    """``build()`` made on the ``meta`` device, then materialised on
+    ``device`` (the card unless named) with flax's init drawn from a
+    generator there seeded with ``seed``: no host copy of the weights.
+    ``build`` must construct without drawing (``generator`` unused)."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = build()
+    model.to_empty(device=dev)
+    reset = getattr(model, "reset_parameters", None)
+    gen = torch.Generator(dev).manual_seed(seed)
+    if reset is not None:
+        reset(gen)
+    else:
+        reset_flax(model, gen)
+    return model
+
+
+def cast_matmul_weights(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast every conv's and Dense layer's weight and bias to ``dtype``
+    once (the layers cast them at each call otherwise: the same numbers),
+    conv weights in channels_last; norm parameters and BN statistics stay
+    f32, as flax uses them."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (Conv, nn.Linear)):
+                w = m.weight.data.to(dtype)
+                if w.dim() == 4:
+                    w = w.contiguous(memory_format=torch.channels_last)
+                m.weight.data = w
+                if m.bias is not None:
+                    m.bias.data = m.bias.data.to(dtype)
+    return model
+
+
+def count_parameters(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def load_state(build: Callable[[], nn.Module], state_dict,
+               device=None) -> nn.Module:
+    """``build()`` on the ``meta`` device, then ``state_dict`` (torch
+    tensors or numpy arrays, reference names) loaded with
+    ``strict=True`` as f32 tensors on ``device`` (the card unless
+    named)."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = build()
+    state = {k: (v.detach() if isinstance(v, torch.Tensor)
+                 else torch.from_numpy(np.array(v))).to(dev, torch.float32)
+             for k, v in state_dict.items()}
+    model.load_state_dict(state, strict=True, assign=True)
+    return model

@@ -21,7 +21,8 @@ from ``surya_tpu/models/pose/landmark_net.py``.
   so artifacts of either package load in both.
 
 Numerics follow flax where they differ from torch's defaults: SAME padding
-of the stride-2 convs is (0, 1) per side pair; GroupNorm takes eps 1e-6
+of the stride-2 convs is (0, 1) per side pair; GroupNorm
+(``models/norms.py``) takes eps 1e-6
 and the variance E[x²] − E[x]² (clipped at 0) in f32 (at least: flax
 promotes the statistics' dtype to f32), and returns the compute dtype;
 convs run in the compute dtype (bf16 by default), the heatmap conv and the
@@ -39,12 +40,8 @@ import torch.nn.functional as F
 from surya_tpu_torch.features.landmarks import NUM_LANDMARKS
 from surya_tpu_torch.models.backbones.resnet import Conv
 from surya_tpu_torch.models.common import reset_dense
+from surya_tpu_torch.models.norms import GroupNorm, acc_dtype
 from surya_tpu_torch.ops import resolve_device
-
-
-def _acc(dtype: torch.dtype) -> torch.dtype:
-    """The statistics' and heads' dtype: at least f32, as flax promotes."""
-    return torch.promote_types(dtype, torch.float32)
 
 
 def _grid(h: int, w: int, device, dtype=torch.float32) -> torch.Tensor:
@@ -62,7 +59,7 @@ def _positions_last(heatmaps: torch.Tensor) -> torch.Tensor:
     landmarks then sat 5.4e-5 from an f64 one on the CPU, 6e-6 on an
     H100); over the contiguous last dimension it sums accurately."""
     b, h, w, k = heatmaps.shape
-    return (heatmaps.reshape(b, h * w, k).to(_acc(heatmaps.dtype))
+    return (heatmaps.reshape(b, h * w, k).to(acc_dtype(heatmaps.dtype))
             .transpose(1, 2).contiguous())
 
 
@@ -74,38 +71,6 @@ def soft_argmax_2d(heatmaps: torch.Tensor) -> torch.Tensor:
     probs = torch.softmax(_positions_last(heatmaps), dim=-1)
     return torch.einsum("bkp,pc->bkc", probs,
                         _grid(h, w, heatmaps.device, probs.dtype))
-
-
-class GroupNorm(nn.Module):
-    """flax ``nn.GroupNorm`` (8 groups, eps 1e-6) on an NCHW map: per-sample
-    group statistics in f32 with the fast variance E[x²] − E[x]² clipped at
-    0, ``(x − mean)·(rsqrt(var + eps)·scale) + bias`` in f32, returned in
-    the input's dtype. Channel means are taken first and then averaged per
-    group (equal counts), so a channels_last map needs no re-layout."""
-
-    def __init__(self, channels: int, groups: int = 8, eps: float = 1e-6):
-        super().__init__()
-        self.groups, self.eps = groups, eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-
-    def reset_parameters(self, generator=None):
-        with torch.no_grad():
-            self.weight.fill_(1.0)
-            self.bias.zero_()
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c = x.shape[:2]
-        g = self.groups
-        xf = x.to(_acc(x.dtype))
-        mu = xf.mean((2, 3)).reshape(b, g, -1).mean(-1)
-        mu2 = (xf * xf).mean((2, 3)).reshape(b, g, -1).mean(-1)
-        var = torch.clamp(mu2 - mu * mu, min=0.0)
-        mean = mu.repeat_interleave(c // g, 1)
-        mul = torch.rsqrt(var + self.eps).repeat_interleave(c // g, 1)
-        mul = mul * self.weight
-        y = (xf - mean[..., None, None]) * mul[..., None, None]
-        return (y + self.bias[:, None, None]).to(x.dtype)
 
 
 class PoseLandmarkNet(nn.Module):
@@ -171,7 +136,7 @@ class PoseLandmarkNet(nn.Module):
             x = F.relu(getattr(self, f"{name}_gn")(
                 getattr(self, name)(x))) + skip
 
-        acc = _acc(self.dtype)
+        acc = acc_dtype(self.dtype)
         heatmaps = self.heatmap(x.to(acc)).permute(0, 2, 3, 1)  # (B,h,w,K)
         xy = soft_argmax_2d(heatmaps)
         g = bottleneck.to(acc).mean((2, 3))

@@ -35,12 +35,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from surya_tpu_torch.models.backbones.vit import (
-    LayerNorm,
     MultiHeadDotProductAttention,
     ViT,
     reset_transformer,
 )
 from surya_tpu_torch.models.common import dense, flax_dropout
+from surya_tpu_torch.models.norms import LayerNorm
 
 _A11 = "is not ported yet: ROADMAP A11 (parallelism)"
 
