@@ -2820,7 +2820,6 @@ def export_phase(quadrant, fusion_head, card):
 # ---------------------------------------------------------------------------
 
 GEN_DIR = os.path.join(REPO, "build", "chip_smoke_generate")
-GEN_DEV = "cuda"   # the phase's device (a CPU rehearsal sets "cpu")
 GEN_CLIPS = (("video_clip_001", "cobra pose"), ("video_clip_002",
                                                 "plank pose"))
 GEN_FRAMES, GEN_FRAME_HW = 6, (480, 640)
@@ -2897,26 +2896,26 @@ def gen_u2net(card):
                          .astype(np.float32))
     batch = torch.from_numpy(rng.integers(
         0, 256, (U2NET_BATCH, U2NET_SIZE, U2NET_SIZE, 3),
-        dtype=np.uint8)).to(GEN_DEV)
+        dtype=np.uint8)).to("cuda")
     rows = {}
     for variant in ("u2net", "u2netp"):
         cpu = seeded(lambda v=variant: U2Net(v), 0, "cpu").eval()
         if count_parameters(cpu) != PARAMS[variant]:
             raise AssertionError(f"{variant}: {count_parameters(cpu)} "
                                  f"parameters")
-        gpu = copy.deepcopy(cpu).to(GEN_DEV)
+        gpu = copy.deepcopy(cpu).to("cuda")
         with torch.inference_mode():
             t0 = time.perf_counter()
             want_fused, _ = cpu(x)
             want_alpha = saliency(cpu, frames, U2NET_SIZE)
             cpu_s = time.perf_counter() - t0
-            got_fused, _ = gpu(x.to(GEN_DEV))
-            got_alpha = saliency(gpu, frames.to(GEN_DEV), U2NET_SIZE)
+            got_fused, _ = gpu(x.to("cuda"))
+            got_alpha = saliency(gpu, frames.to("cuda"), U2NET_SIZE)
         fused_rel = compare(got_fused.cpu(), want_fused)[1]
         alpha_rel = compare(got_alpha.cpu(), want_alpha)[1]
         b16 = cast_matmul_weights(load_state(
             lambda v=variant: U2Net(v, torch.bfloat16), gpu.state_dict(),
-            GEN_DEV), torch.bfloat16).eval()
+            "cuda"), torch.bfloat16).eval()
         del gpu
         times = []
         with torch.inference_mode():
@@ -2943,7 +2942,7 @@ def gen_u2net(card):
     renamed, csvs = gen_renamed_tree(GEN_DIR)
     clean = os.path.join(GEN_DIR, "clean")
     remove = background.u2net_remove_fn(variant="u2net", size=U2NET_SIZE,
-                                        device=GEN_DEV)
+                                        device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     first = background.process_pipeline(renamed, csvs, clean,
@@ -3019,12 +3018,12 @@ def gen_models(card):
         t0 = time.perf_counter()
         want = two_pass(cpu, cond, x, t, ehs)
         cpu_s = time.perf_counter() - t0
-        gpu = cpu.to(GEN_DEV)          # moved: the CPU run is done
-        dev = [a.to(GEN_DEV) for a in (cond, x, t, ehs)]
+        gpu = cpu.to("cuda")          # moved: the CPU run is done
+        dev = [a.to("cuda") for a in (cond, x, t, ehs)]
         got = two_pass(gpu, *dev)
         unet = cast_matmul_weights(load_state(
             lambda: UNet2DCondition(zero123plus_config()), gpu.state_dict(),
-            GEN_DEV), torch.bfloat16).eval()
+            "cuda"), torch.bfloat16).eval()
         del gpu, cpu
         got16 = two_pass(unet, *dev)
     unet_rel = rel_l2(got.cpu(), want)
@@ -3040,12 +3039,12 @@ def gen_models(card):
         mean, logvar = vcpu.encode(px)
         rec = vcpu.decode(mean)
         vae_cpu_s = time.perf_counter() - t0
-        vgpu = vcpu.to(GEN_DEV)
-        gmean, glogvar = vgpu.encode(px.to(GEN_DEV))
-        grec = vgpu.decode(mean.to(GEN_DEV))
+        vgpu = vcpu.to("cuda")
+        gmean, glogvar = vgpu.encode(px.to("cuda"))
+        grec = vgpu.decode(mean.to("cuda"))
         vae = cast_matmul_weights(load_state(
             lambda: AutoencoderKL(sd_vae_config()), vgpu.state_dict(),
-            GEN_DEV), torch.bfloat16).eval()
+            "cuda"), torch.bfloat16).eval()
         del vgpu, vcpu
     vae_rel = {"mean": compare(gmean.cpu(), mean)[1],
                "logvar": compare(glogvar.cpu(), logvar)[1],
@@ -3067,7 +3066,7 @@ def gen_models(card):
             and max(vae_rel.values()) <= TOL["float32"]
             and torch.isfinite(got16).all()):
         raise AssertionError(f"generate models: {row}")
-    return unet, vae, ehs.to(GEN_DEV)
+    return unet, vae, ehs.to("cuda")
 
 
 def step_flops(unet, ehs, lat_shape, cond_shape) -> int:
@@ -3089,12 +3088,12 @@ def step_flops(unet, ehs, lat_shape, cond_shape) -> int:
     counter = FlopCounterMode(display=False)
     with (torch.inference_mode(),
           FakeTensorMode(allow_non_fake_inputs=True), counter):
-        cond = torch.empty(cond_shape, device=GEN_DEV)
+        cond = torch.empty(cond_shape, device="cuda")
         denoiser = reference_conditioned_denoiser(
             unet, schedule, ehs, cond,
-            cond_noise=lambda i: torch.empty(cond_shape, device=GEN_DEV))
-        denoiser(torch.empty(lat_shape, device=GEN_DEV),
-                 torch.empty((), device=GEN_DEV), 0)
+            cond_noise=lambda i: torch.empty(cond_shape, device="cuda"))
+        denoiser(torch.empty(lat_shape, device="cuda"),
+                 torch.empty((), device="cuda"), 0)
     return counter.get_total_flops()
 
 
@@ -3143,12 +3142,12 @@ def step_split(unet, ehs, lat_shape, cond_shape) -> dict:
     schedule = EulerAncestralSchedule.create(
         GEN_STEPS, timestep_spacing="trailing",
         prediction_type="v_prediction")
-    g = torch.Generator(GEN_DEV).manual_seed(1)
-    cond = torch.randn(cond_shape, generator=g, device=GEN_DEV)
-    lat = torch.randn(lat_shape, generator=g, device=GEN_DEV)
+    g = torch.Generator("cuda").manual_seed(1)
+    cond = torch.randn(cond_shape, generator=g, device="cuda")
+    lat = torch.randn(lat_shape, generator=g, device="cuda")
     denoiser = reference_conditioned_denoiser(unet, schedule, ehs, cond,
                                               generator=g)
-    t = schedule.table("timesteps", GEN_DEV)[0]
+    t = schedule.table("timesteps", "cuda")[0]
     with torch.inference_mode(), labelled_ops():
         denoiser(lat, t, 0)
         torch.cuda.synchronize()
@@ -3169,17 +3168,70 @@ def step_split(unet, ehs, lat_shape, cond_shape) -> dict:
                       for k, v in split.items()}}
 
 
+def device_spans(prof) -> list:
+    """A profile's device intervals (kernels, copies, sets) as sorted
+    (start, end) ns pairs, read from its Kineto events: building the
+    ``FunctionEvent`` tree of one image's ≈ 333,000 kernels takes 40 s."""
+    from torch.autograd import DeviceType
+
+    return sorted((e.start_ns(), e.end_ns())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA
+                  and not e.is_user_annotation())
+
+
+def busy_ms(spans) -> float:
+    """The union of sorted (start, end) ns intervals, in ms: the time the
+    card was doing something."""
+    total, reach = 0, None
+    for start, end in spans:
+        if reach is None or end > reach:
+            total += end - (start if reach is None else max(start, reach))
+            reach = end
+    return total / 1e6
+
+
+@contextlib.contextmanager
+def vae_marks(vae):
+    """Inside: every ``vae.encode`` and ``vae.decode`` call is bracketed by
+    CUDA events on the stream (no synchronisation). → the list of
+    (name, start event, end event), in call order."""
+    marks = []
+
+    def marked(name, fn):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            marks.append((name, start, end))
+            return out
+        return call
+
+    vae.encode = marked("encode", vae.encode)   # shadows the method
+    vae.decode = marked("decode", vae.decode)
+    try:
+        yield marks
+    finally:
+        del vae.encode, vae.decode
+
+
 def gen_trajectory(unet, vae, ehs, clean, card):
     """The published trajectory, bf16 on the card:
     ``zero123plus_unet_generate_fn`` (320-px tile, 3×2 grid, 75 steps,
     seed 0) through ``process_augmentation`` on the first clean PNG of
     each label: 12 finite views of 320×320, then a resumed run that
-    generates none. Seconds per image, UNet forwards/s, peak memory, the
-    flops of a step and the TFLOP/s they imply, one profiled step's
-    split."""
+    generates none. Seconds per image and its spans (VAE encode, the
+    denoising, VAE decode on the card's timeline; ``to_image`` and the
+    PNG reads and writes on the host's), UNet forwards/s and the implied
+    TFLOP/s over the denoising span, peak memory, the flops of a step,
+    one profiled step's split; then one more generation traced whole,
+    for the card's busy time and idle share over that call."""
     import shutil
 
     from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
 
     from surya_tpu_torch.augmentgen import multiview
 
@@ -3190,28 +3242,44 @@ def gen_trajectory(unet, vae, ehs, clean, card):
         shutil.copy(os.path.join(clean, "train", label, first),
                     os.path.join(src, label, first))
     out = os.path.join(GEN_DIR, "views_zero123plus")
-    gen = multiview.zero123plus_unet_generate_fn(
-        unet, vae, ehs, num_steps=GEN_STEPS, tile=GEN_TILE, rows=GEN_ROWS,
-        cols=GEN_COLS, seed=0)
-    finite = []
+
+    def generator(seed):
+        return multiview.zero123plus_unet_generate_fn(
+            unet, vae, ehs, num_steps=GEN_STEPS, tile=GEN_TILE,
+            rows=GEN_ROWS, cols=GEN_COLS, seed=seed)
+
+    gen = generator(0)
+    finite, gen_s, to_image_s = [], [], []
     to_image = multiview.to_image
 
     def checked(pixels):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         finite.append(bool(torch.isfinite(pixels).all()))
-        return to_image(pixels)
+        img = to_image(pixels)
+        to_image_s.append(time.perf_counter() - t0)
+        return img
+
+    def timed(image):
+        t0 = time.perf_counter()
+        grid = gen(image)            # ends in to_image's copy to the host
+        gen_s.append(time.perf_counter() - t0)
+        return grid
 
     multiview.to_image = checked
     try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        report = multiview.process_augmentation(
-            os.path.dirname(src), out, generate_fn=gen, num_steps=GEN_STEPS,
-            rows=GEN_ROWS, cols=GEN_COLS, splits=("train",))
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
+        with vae_marks(vae) as marks:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            report = multiview.process_augmentation(
+                os.path.dirname(src), out, generate_fn=timed,
+                num_steps=GEN_STEPS, rows=GEN_ROWS, cols=GEN_COLS,
+                splits=("train",))
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
         again = multiview.process_augmentation(
-            os.path.dirname(src), out, generate_fn=gen, rows=GEN_ROWS,
+            os.path.dirname(src), out, generate_fn=timed, rows=GEN_ROWS,
             cols=GEN_COLS, splits=("train",))
     finally:
         multiview.to_image = to_image
@@ -3220,30 +3288,64 @@ def gen_trajectory(unet, vae, ehs, clean, card):
         for name in sorted(os.listdir(os.path.join(out, "train", label))):
             with Image.open(os.path.join(out, "train", label, name)) as im:
                 views.append((name, im.size))
+    # per image: encode, then the denoising up to decode, then decode
+    names = [m[0] for m in marks]
+    if names != ["encode", "decode"] * GEN_IMAGES:
+        raise AssertionError(f"VAE calls {names}")
+    encode_ms = [s.elapsed_time(e) for n, s, e in marks if n == "encode"]
+    decode_ms = [s.elapsed_time(e) for n, s, e in marks if n == "decode"]
+    denoise_ms = [marks[k][2].elapsed_time(marks[k + 1][1])
+                  for k in range(0, len(marks), 2)]
+    denoise_s = sum(denoise_ms) / 1e3
+
     factor = 2 ** (len(vae.config.block_out_channels) - 1)
     lat_shape = (1, GEN_ROWS * GEN_TILE // factor,
                  GEN_COLS * GEN_TILE // factor, 4)
     cond_shape = (1, GEN_TILE // factor, GEN_TILE // factor, 4)
     flops = step_flops(unet, ehs, lat_shape, cond_shape)
     split = step_split(unet, ehs, lat_shape, cond_shape)
+
+    # one more generation (the first image, seed 1), traced whole: the
+    # card's busy time against the call's wall time
+    with Image.open(os.path.join(
+            src, GEN_CLIPS[0][1],
+            os.listdir(os.path.join(src, GEN_CLIPS[0][1]))[0])) as im:
+        image = im.convert("RGB")
+    traced = generator(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        traced(image)                # ends in to_image's copy to the host
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    spans = device_spans(prof)
+    busy = busy_ms(spans)
+    trace = {"wall_ms": traced_ms, "busy_ms": busy,
+             "idle_share": 1.0 - busy / traced_ms,
+             "device_events": len(spans),
+             "first_to_last_device_ms":
+                 (max(e for _, e in spans) - spans[0][0]) / 1e6
+                 if spans else None,
+             "vs_untraced_call": traced_ms / (gen_s[-1] * 1e3)}
+
     forwards = 2 * GEN_STEPS * GEN_IMAGES
-    tflops = flops * GEN_STEPS * GEN_IMAGES / wall / 1e12
-    # the profiled step's device time against the trajectory's wall time
-    # per step (which also holds the VAE and the PNGs)
-    step_wall_ms = wall / (GEN_STEPS * GEN_IMAGES) * 1e3
     row = {"phase": "generate_zero123plus", "dtype": "bfloat16",
            "tile": GEN_TILE, "grid": [GEN_ROWS, GEN_COLS],
            "latent_hw": list(lat_shape[1:3]), "steps": GEN_STEPS,
            "images": GEN_IMAGES, "report": report, "resumed": again,
            "views": len(views), "finite": finite, "wall_s": wall,
            "s_per_image": wall / GEN_IMAGES,
-           "unet_forwards_per_s": forwards / wall,
+           "spans_ms_by_image": {
+               "vae_encode": encode_ms, "denoise": denoise_ms,
+               "vae_decode": decode_ms,
+               "to_image": [x * 1e3 for x in to_image_s],
+               "generate_call": [x * 1e3 for x in gen_s]},
+           "png_io_ms_per_image": (wall - sum(gen_s)) / GEN_IMAGES * 1e3,
+           "unet_forwards_per_s": forwards / denoise_s,
            "peak_memory_bytes": peak, "flops_per_step": flops,
-           "implied_tflop_s": tflops,
-           "implied_share_of_989_tflop_s": tflops / 989.0,
-           "profiled_step": split, "wall_ms_per_step": step_wall_ms,
-           "device_idle_share": max(0.0, 1.0 - split["device_ms"]
-                                    / step_wall_ms), **card}
+           "implied_tflop_s": flops * GEN_STEPS * GEN_IMAGES / denoise_s
+           / 1e12,
+           "profiled_step": split, "traced_image": trace, **card}
+    row["implied_share_of_989_tflop_s"] = row["implied_tflop_s"] / 989.0
     emit(row)
     n_views = GEN_IMAGES * GEN_ROWS * GEN_COLS
     if not (report["train"]["generated"] == GEN_IMAGES
@@ -3251,7 +3353,9 @@ def gen_trajectory(unet, vae, ehs, clean, card):
                                    "views_per_image": GEN_ROWS * GEN_COLS}
             and len(views) == n_views
             and all(s == (GEN_TILE, GEN_TILE) for _, s in views)
-            and finite == [True] * GEN_IMAGES):
+            and finite == [True] * GEN_IMAGES
+            and 0.0 < busy <= traced_ms
+            and len(gen_s) == len(to_image_s) == GEN_IMAGES):
         raise AssertionError(f"zero123plus trajectory: {row} {views}")
     return row
 
@@ -3265,7 +3369,7 @@ def gen_tiny(clean, card):
     out = os.path.join(GEN_DIR, "views_tiny")
     gen = multiview.torch_diffusion_generate_fn(
         num_steps=GEN_STEPS, tile=GEN_TILE, rows=GEN_ROWS, cols=GEN_COLS,
-        seed=0, device=GEN_DEV)
+        seed=0, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     report = multiview.process_augmentation(
@@ -3351,9 +3455,9 @@ def gen_chain(views, clean, quadrant, fusion_head, card):
     if counts != {"train": want}:
         raise AssertionError(f"sequence windows: {counts}, want {want}")
     data = SequenceDataSource(cfg.data, splits=("train",),
-                              pin_memory=GEN_DEV != "cpu")
+                              pin_memory=True)
     model = get_model(cfg.model, image_size=size, seed=0)
-    state, tx = create_train_state(model, cfg, device=GEN_DEV)
+    state, tx = create_train_state(model, cfg, device="cuda")
     step = make_train_step(model, tx, cfg)
     # 28 windows make one full batch of 16 an epoch (the rest is dropped)
     batches = (b for epoch in range(CHAIN_STEPS)
@@ -3363,8 +3467,8 @@ def gen_chain(views, clean, quadrant, fusion_head, card):
         reset_launches(quadrant, fusion_head)
         for i in range(CHAIN_STEPS):
             batch = data.device_transform(
-                "train", torch.Generator(GEN_DEV).manual_seed(i),
-                to_device(next(batches), GEN_DEV))
+                "train", torch.Generator("cuda").manual_seed(i),
+                to_device(next(batches), "cuda"))
             state, metrics = step(state, batch)
             losses.append(float(metrics["loss"]))
         launches = read_launches(quadrant, fusion_head)

@@ -33,7 +33,7 @@ weights from a seed, or converted ones through ``import_unet`` /
 from __future__ import annotations
 
 import os
-from typing import Callable
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -86,6 +86,41 @@ def conditioning_pixels(image, size: tuple[int, int], device
     return (pil_bilinear_u8(rgb, size).float() / 127.5 - 1.0)[None]
 
 
+class Draws(NamedTuple):
+    """The standard-normal draws of one image's trajectory: the start
+    (``init``) and each step's ancestral noise (``steps``), as
+    ``euler_ancestral.sample`` takes them; on the zero123plus path also the
+    VAE posterior draw of the conditioning latents (``cond_latent``) and
+    each step's cond noise (``cond``). A draw left None comes from the
+    generator."""
+    init: torch.Tensor | None = None
+    steps: Sequence[torch.Tensor] | None = None
+    cond_latent: torch.Tensor | None = None
+    cond: Sequence[torch.Tensor] | None = None
+
+
+def image_draws(draws: Callable[[int], Draws] | None, device):
+    """→ a function that gives the next image's :class:`Draws`, moved to
+    ``device`` as f32: ``draws(n)`` for the n-th image (from 0), or no
+    draw at all when ``draws`` is None."""
+    count = [0]
+
+    def move(x):
+        if x is None:
+            return None
+        if isinstance(x, torch.Tensor):
+            return x.to(device, torch.float32)
+        return [n.to(device, torch.float32) for n in x]
+
+    def next_draws():
+        if draws is None:
+            return Draws()
+        count[0] += 1
+        return Draws(*map(move, draws(count[0] - 1)))
+
+    return next_draws
+
+
 def to_image(pixels: torch.Tensor):
     """(1, H, W, 3) in [−1, 1] → a PIL image: (x + 1)·127.5 clipped to
     [0, 255] and truncated to uint8, as JAX's ``astype`` does."""
@@ -99,7 +134,9 @@ def torch_diffusion_generate_fn(denoiser=None, state_dict=None,
                                 num_steps: int = 75, tile: int = 320,
                                 rows: int = 3, cols: int = 2,
                                 prediction_type: str = "v_prediction",
-                                seed: int = 0, device=None) -> Callable:
+                                seed: int = 0, device=None,
+                                draws: Callable[[int], Draws] | None = None
+                                ) -> Callable:
     """Grid generation in pixel space: Euler-Ancestral (trailing spacing,
     as the reference configures diffusers at ``batch_aug.py:59-67``) over
     a conditional denoiser, on ``device`` (the card unless named).
@@ -107,7 +144,8 @@ def torch_diffusion_generate_fn(denoiser=None, state_dict=None,
     ``denoiser(scaled, t, cond) -> model_output`` where cond is the clean
     input resized to the grid, in [−1, 1]. Defaults to ``TinyDenoiser``
     with ``state_dict`` or random weights from ``seed`` (untrained:
-    plumbing only). The draws come from one generator on the device,
+    plumbing only). The n-th image's draws are ``draws(n)``
+    (:class:`Draws`), else they come from one generator on the device,
     seeded with ``seed``, consumed image after image."""
     from surya_tpu_torch.models.common import seeded
     from surya_tpu_torch.models.diffusion import (
@@ -129,13 +167,16 @@ def torch_diffusion_generate_fn(denoiser=None, state_dict=None,
         num_steps, timestep_spacing="trailing",
         prediction_type=prediction_type)
     generator = torch.Generator(dev).manual_seed(seed)
+    next_draws = image_draws(draws, dev)
 
     def fn(image):
         cond = conditioning_pixels(image, (gh, gw), dev)
+        d = next_draws()
         with torch.inference_mode():
             out = sample(schedule,
                          lambda scaled, t, i: denoiser(scaled, t, cond),
-                         (1, gh, gw, 3), generator=generator)
+                         (1, gh, gw, 3), generator=generator,
+                         init_noise=d.init, step_noise=d.steps)
         return to_image(out)
 
     return fn
@@ -144,7 +185,9 @@ def torch_diffusion_generate_fn(denoiser=None, state_dict=None,
 def zero123plus_unet_generate_fn(unet, vae, encoder_hidden_states,
                                  num_steps: int = 75, tile: int = 320,
                                  rows: int = 3, cols: int = 2,
-                                 seed: int = 0) -> Callable:
+                                 seed: int = 0,
+                                 draws: Callable[[int], Draws] | None = None
+                                 ) -> Callable:
     """The zero123plus pipeline's shape on the models' device: VAE-encode
     the clean conditioning image at ``tile``, sample its latents ×
     ``SD_SCALING_FACTOR``, run the two-pass reference-attention denoiser
@@ -156,7 +199,8 @@ def zero123plus_unet_generate_fn(unet, vae, encoder_hidden_states,
     ``encoder_hidden_states`` is the (1, S, cross_dim) cross-attention
     context (upstream: the empty-prompt CLIP text embedding plus the
     ramped CLIP vision embedding; no CLIP weights ship, so it is an
-    explicit input). Every draw comes from one generator on the device,
+    explicit input). The n-th image's draws are ``draws(n)``
+    (:class:`Draws`), else they come from one generator on the device,
     seeded with ``seed``."""
     from surya_tpu_torch.models.diffusion import (
         EulerAncestralSchedule,
@@ -177,17 +221,22 @@ def zero123plus_unet_generate_fn(unet, vae, encoder_hidden_states,
         prediction_type="v_prediction")
     ehs = torch.as_tensor(encoder_hidden_states, device=dev)
     generator = torch.Generator(dev).manual_seed(seed)
+    next_draws = image_draws(draws, dev)
 
     def fn(image):
         cond_px = conditioning_pixels(image, (tile, tile), dev)
+        d = next_draws()
         with torch.inference_mode():
             mean, logvar = vae.encode(cond_px)
-            cond_lat = sample_latents(mean, logvar,
-                                      generator=generator) * SD_SCALING_FACTOR
+            cond_lat = sample_latents(
+                mean, logvar, noise=d.cond_latent,
+                generator=generator) * SD_SCALING_FACTOR
             denoiser = reference_conditioned_denoiser(
-                unet, schedule, ehs, cond_lat, generator=generator)
+                unet, schedule, ehs, cond_lat, generator=generator,
+                cond_noise=None if d.cond is None else d.cond.__getitem__)
             latents = sample(schedule, denoiser, lat_shape,
-                             generator=generator)
+                             generator=generator, init_noise=d.init,
+                             step_noise=d.steps)
             out = vae.decode(latents / SD_SCALING_FACTOR)
         return to_image(out)
 

@@ -22,7 +22,7 @@ from surya_tpu_torch.models.backbones.resnet import (
     global_avg_pool,
     nchw,
     nhwc,
-    reset_conv_and_norm,
+    reset_model,
 )
 
 _BLOCKS = (6, 12, 24, 16)
@@ -66,7 +66,7 @@ class DenseNet121Features(nn.Module):
         self.final_bn = BatchNorm(c)
 
     def reset_parameters(self, generator=None):
-        reset_conv_and_norm(self, generator)
+        reset_model(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) NHWC → (B, 1024)."""

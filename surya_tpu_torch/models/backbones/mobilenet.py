@@ -20,7 +20,7 @@ from surya_tpu_torch.models.backbones.resnet import (
     global_avg_pool,
     nchw,
     nhwc,
-    reset_conv_and_norm,
+    reset_model,
 )
 
 # (expansion t, channels c, repeats n, stride s)
@@ -75,7 +75,7 @@ class MobileNetV2Features(nn.Module):
         self.head_bn = BatchNorm(FEATURE_DIM)
 
     def reset_parameters(self, generator=None):
-        reset_conv_and_norm(self, generator)
+        reset_model(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) NHWC → (B, 1280)."""

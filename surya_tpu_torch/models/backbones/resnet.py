@@ -36,6 +36,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from surya_tpu_torch.models.norms import GroupNorm, LayerNorm
+
 STAGES = ("stem", "layer1", "layer2", "layer3", "layer4")
 
 
@@ -165,12 +167,29 @@ class BatchNorm(nn.Module):
         return y
 
 
-def reset_conv_and_norm(module: nn.Module, generator=None) -> None:
-    """JAX's init for every Conv and BatchNorm inside ``module``, in
-    module order: lecun_normal kernels, zero biases, BN scale 1, bias 0."""
-    for m in module.modules():
-        if isinstance(m, (Conv, BatchNorm)):
+def reset_dense(layer: nn.Linear, generator=None) -> None:
+    """flax Dense init: lecun_normal kernel, zero bias."""
+    lecun_normal_(layer.weight, layer.in_features, generator)
+    if layer.bias is not None:
+        with torch.no_grad():
+            layer.bias.zero_()
+
+
+def reset_model(model: nn.Module, generator=None) -> None:
+    """flax's init for every layer inside ``model``: every conv and norm,
+    then every Dense layer, each in module order (the order of the
+    draws). lecun_normal kernels, zero biases, norm scales 1 and biases 0,
+    BN running statistics 0 and 1."""
+    for m in model.modules():
+        if isinstance(m, (Conv, BatchNorm, GroupNorm, LayerNorm)):
             m.reset_parameters(generator)
+        if isinstance(m, BatchNorm):
+            with torch.no_grad():
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            reset_dense(m, generator)
 
 
 def conv_and_norm(fold_bn: bool):
@@ -270,7 +289,7 @@ class ResNet(nn.Module):
         self.out_channels = cin
 
     def reset_parameters(self, generator=None):
-        reset_conv_and_norm(self, generator)
+        reset_model(self, generator)
 
     def forward(self, x: torch.Tensor, upto: str = "layer4",
                 capture: Sequence[str] = (),

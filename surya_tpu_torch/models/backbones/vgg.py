@@ -15,7 +15,7 @@ from surya_tpu_torch.models.backbones.resnet import (
     Conv,
     nchw,
     nhwc,
-    reset_conv_and_norm,
+    reset_model,
 )
 
 # torchvision cfg "D": conv widths with 'M' max pools between blocks
@@ -40,7 +40,7 @@ class VGG16Features(nn.Module):
                 cin, i = v, i + 1
 
     def reset_parameters(self, generator=None):
-        reset_conv_and_norm(self, generator)
+        reset_model(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) NHWC → (B, out_dim)."""

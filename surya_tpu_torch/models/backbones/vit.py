@@ -37,7 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from surya_tpu_torch.models.backbones.resnet import Conv, nchw, nhwc
-from surya_tpu_torch.models.common import dense, flax_dropout, reset_dense
+from surya_tpu_torch.models.common import dense, flax_dropout, reset_model
 from surya_tpu_torch.models.norms import LayerNorm
 
 
@@ -110,17 +110,6 @@ class EncoderBlock(nn.Module):
         return x + self.mlp(self.ln2(x), generator)
 
 
-def reset_transformer(module: nn.Module, generator=None) -> None:
-    """flax's init for every conv, Dense and LayerNorm inside ``module``:
-    lecun_normal kernels (the attention's per-head kernels have fan-in d
-    too), zero biases, LN scale 1 and bias 0."""
-    for m in module.modules():
-        if isinstance(m, nn.Linear):
-            reset_dense(m, generator)
-        elif isinstance(m, (Conv, LayerNorm)):
-            m.reset_parameters(generator)
-
-
 class ViT(nn.Module):
     """(B, H, W, 3) NHWC → (B, embed_dim): the final-LN CLS embedding."""
 
@@ -147,7 +136,7 @@ class ViT(nn.Module):
 
     def reset_parameters(self, generator=None):
         """flax's init; the CLS token zeros, ``pos_embed`` N(0, 0.02)."""
-        reset_transformer(self, generator)
+        reset_model(self, generator)
         with torch.no_grad():
             self.cls_token.zero_()
             nn.init.normal_(self.pos_embed, 0.0, 0.02, generator=generator)

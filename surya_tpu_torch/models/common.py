@@ -22,13 +22,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from surya_tpu_torch.models.backbones.resnet import (
-    BatchNorm,
+from surya_tpu_torch.models.backbones.resnet import (  # noqa: F401
     Conv,
-    lecun_normal_,
-    reset_conv_and_norm,
+    reset_dense,
+    reset_model,
 )
-from surya_tpu_torch.models.norms import GroupNorm, LayerNorm
 from surya_tpu_torch.ops import resolve_device
 from surya_tpu_torch.ops.cuda.fusion_head import fusion_head
 
@@ -60,21 +58,6 @@ def dropout_generator(generator, rate: float, training: bool):
             "train mode with dropout > 0 needs an explicit torch.Generator "
             "(on the inputs' device); the global generator is never used")
     return generator
-
-
-def reset_dense(layer: nn.Linear, generator=None) -> None:
-    """flax Dense init: lecun_normal kernel, zero bias."""
-    lecun_normal_(layer.weight, layer.in_features, generator)
-    with torch.no_grad():
-        layer.bias.zero_()
-
-
-def reset_model(model: nn.Module, generator=None) -> None:
-    """JAX's init for every Conv, BatchNorm and Linear in ``model``."""
-    reset_conv_and_norm(model, generator)
-    for m in model.modules():
-        if isinstance(m, nn.Linear):
-            reset_dense(m, generator)
 
 
 def flax_dropout(x, rate: float, generator, training: bool, shape=None):
@@ -168,24 +151,6 @@ def fuse_by_mode(mode: str, image_feat, num_feat):
     raise ValueError(f"bad mode {mode!r}")
 
 
-def reset_flax(module: nn.Module, generator=None) -> None:
-    """flax's init for every layer inside ``module``: lecun_normal conv and
-    Dense kernels, zero biases, norm scales 1 and biases 0, BN running
-    statistics 0 and 1."""
-    for m in module.modules():
-        if isinstance(m, nn.Linear):
-            lecun_normal_(m.weight, m.in_features, generator)
-            if m.bias is not None:
-                with torch.no_grad():
-                    m.bias.zero_()
-        elif isinstance(m, (Conv, GroupNorm, LayerNorm, BatchNorm)):
-            m.reset_parameters(generator)
-        if isinstance(m, BatchNorm):
-            with torch.no_grad():
-                m.running_mean.zero_()
-                m.running_var.fill_(1.0)
-
-
 def on_meta(module: nn.Module) -> bool:
     return any(p.is_meta for p in module.parameters())
 
@@ -205,7 +170,7 @@ def seeded(build: Callable[[], nn.Module], seed: int = 0,
     if reset is not None:
         reset(gen)
     else:
-        reset_flax(model, gen)
+        reset_model(model, gen)
     return model
 
 

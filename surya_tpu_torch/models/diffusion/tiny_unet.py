@@ -27,7 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from surya_tpu_torch.models.backbones.resnet import Conv
-from surya_tpu_torch.models.common import reset_flax
+from surya_tpu_torch.models.common import reset_model
 from surya_tpu_torch.models.norms import GroupNorm
 
 
@@ -71,7 +71,7 @@ class TinyDenoiser(nn.Module):
 
     def reset_parameters(self, generator=None):
         """flax's init; ``out_conv``'s kernel starts at zeros, as in JAX."""
-        reset_flax(self, generator)
+        reset_model(self, generator)
         with torch.no_grad():
             self.out_conv.weight.zero_()
 

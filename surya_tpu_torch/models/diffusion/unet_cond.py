@@ -13,7 +13,7 @@ write pass returns the list, a read pass takes it as ``refs``.
 Module names are diffusers' own (``down_blocks.0.attentions.1.
 transformer_blocks.0.attn1.to_q``), so :func:`import_unet` is a
 ``load_state_dict(strict=True)`` of a diffusers ``UNet2DConditionModel``
-state_dict, and ``models.from_jax.from_jax_variables`` inverts JAX's
+state_dict, and :func:`diffusers_state_dict` inverts JAX's
 ``_flax_path`` / ``_join_block_prefix`` walk. The public interface is
 NHWC, as in JAX; inside, maps are NCHW views (channels_last memory when
 the input is NHWC).
@@ -38,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import re
 from typing import Optional, Sequence
 
 import torch
@@ -45,7 +46,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from surya_tpu_torch.models.backbones.resnet import Conv
-from surya_tpu_torch.models.common import load_state, on_meta, reset_flax
+from surya_tpu_torch.models.common import load_state, on_meta, reset_model
+from surya_tpu_torch.models.from_jax import from_jax_variables
 from surya_tpu_torch.models.norms import GroupNorm, LayerNorm
 
 
@@ -402,7 +404,7 @@ class UNet2DCondition(nn.Module):
             self.reset_parameters(generator)
 
     def reset_parameters(self, generator=None):
-        reset_flax(self, generator)
+        reset_model(self, generator)
 
     def forward(self, sample, timesteps, encoder_hidden_states,
                 refs: Optional[Sequence[torch.Tensor]] = None):
@@ -486,6 +488,35 @@ def reference_conditioned_denoiser(model: UNet2DCondition, schedule,
         return out
 
     return denoiser
+
+
+# flax module path (``/`` → ``.``) → diffusers module path, in this order
+_DIFFUSERS = [(re.compile(a), b) for a, b in (
+    (r"\b(down_blocks|up_blocks)_(\d+)_", r"\1.\2."),
+    (r"\bmid_block_", "mid_block."),
+    (r"\b(resnets|attentions|downsamplers|upsamplers|transformer_blocks)"
+     r"_(\d+)", r"\1.\2"),
+    (r"\b(downsamplers|upsamplers)\.0_conv\b", r"\1.0.conv"),
+    (r"\bto_out_0\b", "to_out.0"),
+    (r"\bnet_0_proj\b", "net.0.proj"),
+    (r"\bnet_2\b", "net.2"),
+    (r"\btime_embedding_(linear_\d)\b", r"time_embedding.\1"))]
+
+
+def _diffusers_path(path: str) -> str:
+    """``down_blocks_0_attentions_0.transformer_blocks_0.ff.net_0_proj`` →
+    ``down_blocks.0.attentions.0.transformer_blocks.0.ff.net.0.proj``."""
+    for pattern, repl in _DIFFUSERS:
+        path = pattern.sub(repl, path)
+    return path
+
+
+def diffusers_state_dict(variables) -> dict[str, torch.Tensor]:
+    """A JAX UNet's or VAE's variable tree → the port's state_dict, under
+    diffusers' names (``models.from_jax.from_jax_variables``, whose names
+    keep JAX's flattened block paths, then the dots put back)."""
+    return {_diffusers_path(k): v
+            for k, v in from_jax_variables(variables).items()}
 
 
 def import_unet(state_dict, config: UNetConfig, device=None

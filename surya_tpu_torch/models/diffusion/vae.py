@@ -30,7 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from surya_tpu_torch.models.backbones.resnet import Conv
-from surya_tpu_torch.models.common import load_state, on_meta, reset_flax
+from surya_tpu_torch.models.common import load_state, on_meta, reset_model
 from surya_tpu_torch.models.diffusion.unet_cond import (
     Dense,
     Sampler,
@@ -214,7 +214,7 @@ class AutoencoderKL(nn.Module):
             self.reset_parameters(generator)
 
     def reset_parameters(self, generator=None):
-        reset_flax(self, generator)
+        reset_model(self, generator)
 
     def encode(self, x):
         """(B,H,W,3) → mean, logvar (B,H/f,W/f,latent) f32."""

@@ -30,8 +30,8 @@ The port's module names follow the flax tree, so the mapping is by leaf:
 - the generative tier: U²-Net and ``TinyDenoiser`` take the flax names
   (U²-Net's are the canonical torch ones); the zero123plus UNet and the
   VAE take diffusers' names, which JAX flattened (``down_blocks_0_resnets_0``,
-  ``to_out_0``, ``net_0_proj``): :func:`_diffusers_path` puts the dots
-  back, the inverse of JAX's ``_flax_path`` / ``_join_block_prefix``.
+  ``to_out_0``, ``net_0_proj``): ``unet_cond.diffusers_state_dict``
+  puts the dots back in the names this module gives.
 
 Inputs are numpy arrays (or anything ``np.asarray`` takes), so nothing of
 JAX is needed: :func:`load_npz_variables` rebuilds the tree from an
@@ -40,8 +40,6 @@ JAX is needed: :func:`load_npz_variables` rebuilds the tree from an
 """
 
 from __future__ import annotations
-
-import re
 
 import numpy as np
 import torch
@@ -61,28 +59,6 @@ def _flatten(tree, prefix=()):
 _TO_OUT_IN = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 _ATTENTION = ("query", "key", "value", "out")
 _GATES = "ifgo"
-
-
-# flax module path (``/`` → ``.``) → diffusers module path, in this order
-_DIFFUSERS = [(re.compile(a), b) for a, b in (
-    (r"\b(down_blocks|up_blocks)_(\d+)_", r"\1.\2."),
-    (r"\bmid_block_", "mid_block."),
-    (r"\b(resnets|attentions|downsamplers|upsamplers|transformer_blocks)"
-     r"_(\d+)", r"\1.\2"),
-    (r"\b(downsamplers|upsamplers)\.0_conv\b", r"\1.0.conv"),
-    (r"\bto_out_0\b", "to_out.0"),
-    (r"\bnet_0_proj\b", "net.0.proj"),
-    (r"\bnet_2\b", "net.2"),
-    (r"\btime_embedding_(linear_\d)\b", r"time_embedding.\1"))]
-
-
-def _diffusers_path(path: str) -> str:
-    """``down_blocks_0_attentions_0.transformer_blocks_0.ff.net_0_proj`` →
-    ``down_blocks.0.attentions.0.transformer_blocks.0.ff.net.0.proj``;
-    other models' paths match no pattern and pass unchanged."""
-    for pattern, repl in _DIFFUSERS:
-        path = pattern.sub(repl, path)
-    return path
 
 
 def _lstm_cell(prefix: str, cell: dict, out: dict) -> None:
@@ -122,8 +98,8 @@ def from_jax_variables(variables) -> dict[str, torch.Tensor]:
                 name = "weight"
             else:
                 name = _LEAF.get(leaf, leaf)
-            out[_diffusers_path(".".join([*mods, name]))] = (
-                torch.from_numpy(np.ascontiguousarray(a)))
+            out[".".join([*mods, name])] = torch.from_numpy(
+                np.ascontiguousarray(a))
         for mods, cell in cells.items():
             _lstm_cell(".".join(mods), cell, out)
     return out

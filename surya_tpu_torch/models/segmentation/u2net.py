@@ -33,7 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from surya_tpu_torch.models.backbones.resnet import BatchNorm, Conv
-from surya_tpu_torch.models.common import load_state, on_meta, reset_flax
+from surya_tpu_torch.models.common import load_state, on_meta, reset_model
 
 # Per-stage specs: (kind, height L or None, mid, out). Encoder stages 1-6
 # then decoder stages 5d-1d; decoder input = concat(up, skip).
@@ -179,7 +179,7 @@ class U2Net(nn.Module):
             self.reset_parameters(generator)
 
     def reset_parameters(self, generator=None):
-        reset_flax(self, generator)
+        reset_model(self, generator)
 
     def forward(self, x):
         x = x.to(self.dtype).permute(0, 3, 1, 2)

@@ -37,9 +37,8 @@ import torch.nn.functional as F
 from surya_tpu_torch.models.backbones.vit import (
     MultiHeadDotProductAttention,
     ViT,
-    reset_transformer,
 )
-from surya_tpu_torch.models.common import dense, flax_dropout
+from surya_tpu_torch.models.common import dense, flax_dropout, reset_model
 from surya_tpu_torch.models.norms import LayerNorm
 
 _A11 = "is not ported yet: ROADMAP A11 (parallelism)"
@@ -114,7 +113,7 @@ class FactModel(nn.Module):
         (the reference's ``nn.Embedding`` and ``torch.randn`` scale)."""
         for name, child in self.named_children():
             if name != "vit_backbone":
-                reset_transformer(child, generator)
+                reset_model(child, generator)
         self.vit_backbone.reset_parameters(generator)
         with torch.no_grad():
             for p in (self.token_type_embed, self.cls_token, self.pos_embed):

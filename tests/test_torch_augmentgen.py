@@ -1,12 +1,14 @@
 """The port's generative augmentation stages
 (``surya_tpu_torch/augmentgen/{background,multiview}.py``) on the CPU:
 background removal against the JAX package's PNGs, the multiview file
-contract and resume, the latent pipeline's shape on tiny models, and the
-chain of ``tests/test_multiview_integration.py`` (generated views →
-sequence windows → a ``cnn_lstm`` train run) on the port.
+contract and resume, both generators against JAX's on tiny models with
+JAX's draws injected, and the chain of
+``tests/test_multiview_integration.py`` (generated views → sequence
+windows → a ``cnn_lstm`` train run) on the port.
 
 Tolerances: the RGB planes equal, the alpha within 1 level of JAX's (the
-saliency maps differ by f32 rounding before they are quantised).
+saliency maps differ by f32 rounding before they are quantised); the
+generated grids within 1 level of JAX's, for the same reason.
 """
 
 import csv
@@ -15,13 +17,17 @@ import os
 import shutil
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from PIL import Image
+from torch_mirror_unet import MirrorUNet2DCondition
+from torch_mirror_vae import MirrorAutoencoderKL
 from torch_port_fixtures import one_torch_thread  # noqa: F401
 
 from surya_tpu.augmentgen import background as jax_background
+from surya_tpu.augmentgen import multiview as jax_multiview
 from surya_tpu.augmentgen.multiview import (
     slice_grid_in_memory as jax_slice,
 )
@@ -33,6 +39,7 @@ from surya_tpu_torch.data.sequences import (
     SequenceDataSource,
     build_sequence_dataset,
 )
+from surya_tpu_torch.models.from_jax import from_jax_variables
 from tests.torch_mirrors import MirrorU2NetP, randomize_bn_stats
 
 LABELS = ("cobra pose", "plank pose")
@@ -158,14 +165,116 @@ def test_process_augmentation_contract_and_resume(tmp_path):
         assert im.size == (320, 320)
 
 
-def test_zero123plus_latent_pipeline_tiny(tmp_path):
-    """VAE encode → the reference-attention UNet over 2 Euler-Ancestral
-    steps in latent space → VAE decode → the 3×2 grid, on the tiny
-    configurations, seeded on the CPU: a (16, 24) grid of finite pixels;
-    the same seed gives the same grid, and the conditioning steers it."""
-    from surya_tpu_torch.models.common import seeded
+def _sampler_draws(key, shape, steps):
+    """JAX ``sample``'s draws from ``key``: ``split(key)`` for the start,
+    then ``k, kn = split(k)`` per step."""
+    k, sub = jax.random.split(key)
+    init = jax.random.normal(sub, shape, jnp.float32)
+    noise = []
+    for _ in range(steps):
+        k, kn = jax.random.split(k)
+        noise.append(jax.random.normal(kn, shape, jnp.float32))
+    return t_(init), [t_(n) for n in noise]
+
+
+def t_(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _grids(monkeypatch):
+    """Keep the f32 grid of each generated image before its cast to uint8:
+    JAX's as its generator fetches it (``jax.device_get``), the port's as
+    it reaches ``multiview.to_image``. → (JAX's list, the port's list)."""
+    jax_grids, port_grids = [], []
+    device_get, to_image = jax.device_get, multiview.to_image
+
+    def fetch(x):
+        out = device_get(x)
+        jax_grids.append(np.asarray(out)[0])
+        return out
+
+    def image(pixels):
+        port_grids.append(pixels[0].numpy())
+        return to_image(pixels)
+
+    monkeypatch.setattr(jax, "device_get", fetch)
+    monkeypatch.setattr(multiview, "to_image", image)
+    return jax_grids, port_grids
+
+
+def _hold(want_fn, got_fn, images, monkeypatch):
+    """Both generators over ``images``: the f32 grids within 1e-5 of JAX's
+    (relative to its largest value), the uint8 grids within 1 level."""
+    jax_grids, port_grids = _grids(monkeypatch)
+    for n, image in enumerate(images):
+        w, g = np.asarray(want_fn(image)), np.asarray(got_fn(image))
+        assert g.shape == w.shape and g.dtype == w.dtype == np.uint8
+        assert np.abs(g.astype(int) - w.astype(int)).max() <= 1, n
+        assert rel(port_grids[n], jax_grids[n]) <= 1e-5, (
+            n, rel(port_grids[n], jax_grids[n]))
+    return jax_grids
+
+
+def rel(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _cond_image(seed, size=(8, 8)):
+    return Image.fromarray(np.random.default_rng(seed).integers(
+        0, 255, (*size, 3), np.uint8), "RGB")
+
+
+def test_tiny_denoiser_pipeline_matches_jax(monkeypatch):
+    """``torch_diffusion_generate_fn`` (TinyDenoiser at 8-px tiles, 3
+    steps) against JAX's ``jax_diffusion_generate_fn`` on the same weights
+    (``out_conv`` moved off its zero init), with JAX's draws of image n
+    (``fold_in(PRNGKey(seed), n)``) injected, two images: the f32 grids
+    within 1e-5 relative, the uint8 ones within 1 level."""
+    from surya_tpu.models.diffusion import TinyDenoiser as JaxTiny
+
+    steps, tile, seed = 3, 8, 0
+    shape = (1, 3 * tile, 2 * tile, 3)
+    x = jnp.zeros(shape)
+    variables = jax.device_get(jax.jit(JaxTiny().init)(
+        jax.random.PRNGKey(1), x, jnp.float32(0.0), x))
+    oc = variables["params"]["out_conv"]
+    oc["kernel"] = np.random.default_rng(2).normal(
+        0, 0.1, oc["kernel"].shape).astype(np.float32)
+    want = jax_multiview.jax_diffusion_generate_fn(
+        variables=variables, num_steps=steps, tile=tile, seed=seed)
+
+    def draws(n):
+        key = jax.random.fold_in(jax.random.PRNGKey(seed), n)
+        init, noise = _sampler_draws(key, shape, steps)
+        return multiview.Draws(init, noise)
+
+    got = multiview.torch_diffusion_generate_fn(
+        state_dict=from_jax_variables(variables), num_steps=steps,
+        tile=tile, seed=seed, device="cpu", draws=draws)
+    grids = _hold(want, got, [_cond_image(n, (11, 7)) for n in range(2)],
+                  monkeypatch)
+    assert grids[0].shape == shape[1:]
+
+
+def test_zero123plus_latent_pipeline_tiny(monkeypatch):
+    """``zero123plus_unet_generate_fn`` on the tiny UNet and VAE (one set
+    of mirror weights through JAX's importers, bridged for the port; 8-px
+    tiles, 3 steps) against JAX's function of the same name, with JAX's
+    draws of image n injected: ``kc, kd, ks = split(fold_in(PRNGKey(seed),
+    n), 3)``, the posterior draw from kc, step i's cond noise from
+    ``fold_in(kd, i)``, the sampler's from ks. The self-attention query and
+    key weights are scaled by 4, so that the reference bank moves the
+    output by far more than the tolerance. Two images: the f32 grids within
+    1e-5 relative, the uint8 ones within 1 level. Then the port's own
+    generator path: the same seed gives the same grid, and the
+    conditioning image steers it."""
+    from surya_tpu.models.diffusion import unet_cond as juc
+    from surya_tpu.models.diffusion import vae as jvae
     from surya_tpu_torch.models.diffusion.unet_cond import (
         UNet2DCondition,
+        diffusers_state_dict,
         tiny_config,
     )
     from surya_tpu_torch.models.diffusion.vae import (
@@ -173,24 +282,51 @@ def test_zero123plus_latent_pipeline_tiny(tmp_path):
         tiny_vae_config,
     )
 
-    unet = seeded(lambda: UNet2DCondition(tiny_config()), 0, "cpu").eval()
-    vae = seeded(lambda: AutoencoderKL(tiny_vae_config()), 1, "cpu").eval()
-    ehs = torch.from_numpy(np.random.default_rng(2).normal(
-        0, 1, (1, 7, 12)).astype(np.float32))
-    cond = Image.fromarray(np.random.default_rng(3).integers(
-        0, 255, (8, 8, 3), np.uint8), "RGB")
+    steps, tile, seed = 3, 8, 0
+    torch.manual_seed(0)
+    state = MirrorUNet2DCondition().state_dict()
+    for k, v in state.items():
+        if ".attn1.to_q." in k or ".attn1.to_k." in k:
+            v.mul_(4.0)
+    unet_vars = jax.device_get(juc.import_unet(state))
+    vae_vars = jax.device_get(jvae.import_vae(
+        MirrorAutoencoderKL().state_dict()))
+    unet = UNet2DCondition(tiny_config())
+    unet.load_state_dict(diffusers_state_dict(unet_vars))
+    vae = AutoencoderKL(tiny_vae_config())
+    vae.load_state_dict(diffusers_state_dict(vae_vars))
+    unet, vae = unet.eval(), vae.eval()
+    ehs = np.random.default_rng(2).normal(0, 1, (1, 7, 12)).astype(
+        np.float32)
+    want = jax_multiview.zero123plus_unet_generate_fn(
+        juc.tiny_config(), unet_vars, jvae.tiny_vae_config(), vae_vars, ehs,
+        num_steps=steps, tile=tile, seed=seed)
+    cond_shape, lat_shape = (1, tile // 2, tile // 2, 4), (1, 12, 8, 4)
 
-    def grid(image, seed=0):
-        return multiview.zero123plus_unet_generate_fn(
-            unet, vae, ehs, num_steps=2, tile=8, seed=seed)(image)
+    def draws(n):
+        kc, kd, ks = jax.random.split(
+            jax.random.fold_in(jax.random.PRNGKey(seed), n), 3)
+        init, noise = _sampler_draws(ks, lat_shape, steps)
+        return multiview.Draws(
+            init, noise, t_(jax.random.normal(kc, cond_shape, jnp.float32)),
+            [t_(jax.random.normal(jax.random.fold_in(kd, i), cond_shape,
+                                  jnp.float32)) for i in range(steps)])
 
-    g = grid(cond)
-    assert g.size == (16, 24)
-    views = multiview.slice_grid_in_memory(g)
-    assert len(views) == 6 and views[0].size == (8, 8)
-    np.testing.assert_array_equal(np.asarray(grid(cond)), np.asarray(g))
-    other = Image.fromarray(255 - np.asarray(cond))
-    assert not np.array_equal(np.asarray(grid(other)), np.asarray(g))
+    got = multiview.zero123plus_unet_generate_fn(
+        unet, vae, t_(ehs), num_steps=steps, tile=tile, seed=seed,
+        draws=draws)
+    grids = _hold(want, got, [_cond_image(3 + n) for n in range(2)],
+                  monkeypatch)
+    assert grids[0].shape == (3 * tile, 2 * tile, 3)
+    monkeypatch.undo()
+
+    def grid(image):
+        return np.asarray(multiview.zero123plus_unet_generate_fn(
+            unet, vae, t_(ehs), num_steps=2, tile=tile, seed=seed)(image))
+
+    g = grid(_cond_image(3))
+    np.testing.assert_array_equal(grid(_cond_image(3)), g)
+    assert not np.array_equal(grid(_cond_image(4)), g)
 
 
 def _camera_oracle(image):

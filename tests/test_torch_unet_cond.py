@@ -28,7 +28,7 @@ from surya_tpu_torch.models.diffusion import unet_cond as tuc
 from surya_tpu_torch.models.diffusion.euler_ancestral import (
     EulerAncestralSchedule,
 )
-from surya_tpu_torch.models.from_jax import from_jax_variables
+from surya_tpu_torch.models.diffusion.unet_cond import diffusers_state_dict
 
 TINY = dict(in_channels=4, out_channels=4, block_out_channels=(8, 16),
             layers_per_block=1, num_heads=(2, 2),
@@ -71,7 +71,7 @@ def unet():
     write = jax.jit(model.apply)
     read = jax.jit(lambda v, x, t, e, r: model.apply(v, x, t, e, refs=r))
     port = tuc.UNet2DCondition(tuc.tiny_config())
-    port.load_state_dict(from_jax_variables(variables), strict=True)
+    port.load_state_dict(diffusers_state_dict(variables), strict=True)
     return state, variables, write, read, port.eval(), model
 
 
@@ -141,7 +141,7 @@ def test_import_unet_and_round_trip(unet):
     diffusers' names) gives JAX's ``import_unet`` + ``apply`` logits, and
     ``from_jax_variables`` of JAX's tree is that state_dict bit for bit."""
     state, variables, write, _, _, _ = unet
-    back = from_jax_variables(variables)
+    back = diffusers_state_dict(variables)
     assert set(back) == set(state)
     assert all(torch.equal(back[k], state[k]) for k in state)
     port = tuc.import_unet(state, tuc.tiny_config(), device="cpu")

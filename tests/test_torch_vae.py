@@ -20,7 +20,7 @@ from torch_port_fixtures import one_torch_thread  # noqa: F401
 from surya_tpu.models.diffusion import vae as jvae
 from surya_tpu_torch.models.common import count_parameters
 from surya_tpu_torch.models.diffusion import vae as tvae
-from surya_tpu_torch.models.from_jax import from_jax_variables
+from surya_tpu_torch.models.diffusion.unet_cond import diffusers_state_dict
 
 TINY = dict(in_channels=3, out_channels=3, latent_channels=4,
             block_out_channels=(8, 16), layers_per_block=1,
@@ -48,7 +48,7 @@ def vae():
     encode = jax.jit(lambda v, x: model.apply(v, x, method="encode"))
     decode = jax.jit(lambda v, z: model.apply(v, z, method="decode"))
     port = tvae.AutoencoderKL(tvae.tiny_vae_config())
-    port.load_state_dict(from_jax_variables(variables), strict=True)
+    port.load_state_dict(diffusers_state_dict(variables), strict=True)
     return state, variables, encode, decode, port.eval()
 
 
@@ -103,7 +103,7 @@ def test_logvar_clip_and_sample_latents(vae):
 
 def test_import_vae_and_round_trip(vae):
     state, variables, encode, _, _ = vae
-    back = from_jax_variables(variables)
+    back = diffusers_state_dict(variables)
     assert set(back) == set(state)
     assert all(torch.equal(back[k], state[k]) for k in state)
     port = tvae.import_vae(state, tvae.tiny_vae_config(), device="cpu")
