@@ -3393,9 +3393,10 @@ def hold_head_train(calls, fusion_head):
     """Each recorded launch of the head's training form against its plain
     version on the same inputs, the keep mask rebuilt from the launch's
     own seed (Philox), to bf16's TOL."""
-    def plain(x, w1, b1, w2, b2, *, rate, seed):
+    def plain(x, w1, b1, w2, b2, *, rate, seed, row_offset=0):
         keep = (fusion_head.philox_bits(int(seed.reshape(-1)[0]),
-                                        x.shape[0], w1.shape[0], x.device)
+                                        x.shape[0], w1.shape[0], x.device,
+                                        row_offset)
                 >= fusion_head.dropout_threshold(rate))
         return fusion_head.fusion_head_plain(
             x.float(), w1.to(x.dtype).float(), b1.float(),
@@ -3515,6 +3516,399 @@ def generate_phase(quadrant, fusion_head, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# parallel: the mesh, DP, ZeRO-1, FSDP2 and TP (core/mesh.py, parallel/)
+# ---------------------------------------------------------------------------
+
+PARALLEL_BATCH, PARALLEL_F32_BATCH = 256, 16   # global rows; f32 with TF32 off
+PARALLEL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# the f32 gradients' relative L2 (dp2's merged BN statistics round apart
+# from one process's and flip ReLU masks of pre-activations within ~1e-7
+# of 0, as tests/test_torch_parallel.py holds the trunk's); bf16's are
+# reported only: its activations round at 2^-8
+PARALLEL_GRAD_TOL = 2e-2
+
+
+def start_torchrun(nproc: int, args: list):
+    """``torchrun --standalone --nproc-per-node=N ARGS`` from the
+    repository, started (``torch.distributed.run``, the same launcher)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={nproc}", *args], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def parallel_spec(dtype: str, batch: int, mesh: dict) -> dict:
+    return {"dtype": dtype, "batch": batch, "mesh": mesh}
+
+
+def parallel_config(spec: dict):
+    from surya_tpu_torch.core.config import get_preset
+
+    return get_preset("quadtree-fusion").override({
+        "model.compute_dtype": spec["dtype"],
+        **({"train.fsdp": "true"} if spec.get("fsdp") else {})})
+
+
+def parallel_step(spec: dict, mesh=None, record=False) -> dict:
+    """The flagship (seed 0, 224 px, dropout 0.5) on this rank's rows of a
+    seeded global batch: a train-mode forward's logits, then one train step
+    → logits, loss, accuracy, BN running statistics and parameters after
+    the step, gathered to the single-device form (rank 0 of a mesh); with
+    ``record``, every kernel call the two run held against its plain
+    version."""
+    from surya_tpu_torch.core.checkpoint import snapshot
+    from surya_tpu_torch.core.mesh import batch_rows, shard_batch
+    from surya_tpu_torch.models import get_model
+    from surya_tpu_torch.ops.cuda import fusion_head, quadrant
+    from surya_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = parallel_config(spec)
+    model = get_model(cfg.model, image_size=cfg.data.image_size, seed=0)
+    state, tx = create_train_state(model, cfg, mesh=mesh)
+    step = make_train_step(model, tx, cfg, mesh=mesh)
+    batch = train_batch(cfg, spec["batch"], seed=5)
+    rows = None
+    if mesh is not None and mesh.distributed:
+        rows = mesh.row_shard(spec["batch"])
+        batch = shard_batch(mesh, batch)
+    batch = tuple(torch.from_numpy(a).cuda() for a in batch)
+    buffers = [b.clone() for b in model.buffers()]
+    quadrant.launches = fusion_head.launches = 0
+    quadrant.training_launches = fusion_head.training_launches = 0
+    rec = recording_kernels() if record else contextlib.nullcontext({})
+    with rec as calls:
+        model.train()
+        with torch.no_grad(), batch_rows(rows):
+            logits = model(batch[0], batch[1], torch.Generator(
+                "cuda").manual_seed(11)).float()
+        torch._foreach_copy_(list(model.buffers()), buffers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch,
+                              torch.Generator("cuda").manual_seed(12))
+        loss = float(metrics["loss"])
+        step_s = time.perf_counter() - t0
+    launches = {"quadrant": quadrant.launches,
+                "quadrant_train": quadrant.training_launches,
+                "fusion_head": fusion_head.launches,
+                "fusion_head_train": fusion_head.training_launches}
+    held = hold_parallel(calls, quadrant, fusion_head) if record else None
+    snap = snapshot(state)
+    return {"logits": logits.cpu(), "loss": loss,
+            "accuracy": float(metrics["accuracy"]), "model": snap["model"],
+            "optimizer": snap["optimizer"],
+            "launches": launches, "held": held, "step_s": step_s}
+
+
+def hold_parallel(calls, quadrant, fusion_head):
+    """Every kept kernel call of a parallel run against its plain version
+    on its own inputs (the head's dropout mask rebuilt from the call's
+    seed and row offset), to TOL of its dtype: bf16 on the card, and every
+    head call with dropout 0.5 (a train-mode forward and the step)."""
+    def head_plain(x, w1, b1, w2, b2, *, rate, seed, row_offset=0):
+        keep = (fusion_head.philox_bits(
+            int(seed.reshape(-1)[0]), x.shape[0], w1.shape[0], x.device,
+            row_offset) >= fusion_head.dropout_threshold(rate))
+        return fusion_head.fusion_head_plain(
+            x.float(), w1.to(x.dtype).float(), b1.float(),
+            w2.to(x.dtype).float(), b2.float(), rate, keep)
+
+    def quadrant_plain(x, w, b, **_):
+        return quadrant.quadrant_process_plain(
+            x.float(), w.to(x.dtype).float(), b.float())
+
+    failed = []
+    with torch.inference_mode():
+        held = {"quadrant": _hold("quadrant", calls["quadrant"],
+                                  quadrant_plain, failed),
+                "fusion_head": _hold("fusion_head", calls["fusion_head"],
+                                     head_plain, failed, train=True)}
+    if failed or not all(row["calls"] for row in held.values()):
+        raise AssertionError(f"parallel kernel holds: {held} {failed}")
+    return held
+
+
+PARALLEL_RUNS = {
+    "dp2_bf16": {**parallel_spec("bfloat16", PARALLEL_BATCH, {"data": 2})},
+    "dp2_f32": {**parallel_spec("float32", PARALLEL_F32_BATCH,
+                                {"data": 2})},
+    "tp2_bf16": {**parallel_spec("bfloat16", PARALLEL_BATCH,
+                                 {"data": 1, "model": 2}), "record": True}}
+
+
+def parallel_gloo_child(out_dir: str) -> None:
+    """One of two ranks on the one card (``torchrun --nproc-per-node=2``),
+    over gloo with CUDA tensors (NCCL refuses two ranks on one device):
+    each of ``PARALLEL_RUNS`` → ``rank<r>.pt`` in ``out_dir``."""
+    import torch.distributed as dist
+
+    from surya_tpu_torch.core import mesh as cmesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo")
+    out = {}
+    for name, spec in PARALLEL_RUNS.items():
+        mesh = cmesh.create_mesh(cmesh.MeshSpec(**spec["mesh"]), "cuda")
+        before = dict(cmesh.collective_bytes)
+        out[name] = parallel_step(spec, mesh, record=spec.get("record"))
+        out[name]["bytes"] = {k: cmesh.collective_bytes[k] - before[k]
+                              for k in before}
+        dist.barrier()
+    torch.save(out, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
+    dist.destroy_process_group()
+
+
+def _median_ms(fn, reps=10, warmup=3):
+    for _ in range(warmup):
+        fn()
+    ms = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return statistics.median(ms)
+
+
+def parallel_nccl_child(out_file: str) -> None:
+    """One NCCL rank (``torchrun --nproc-per-node=1``): the flagship's
+    batch-256 bf16 step without a mesh and on the world-1 mesh (its
+    gradient all-reduce and metric all-reduce), in turns; the bytes one DP
+    step all-reduces; forward + backward with the global-batch BN path
+    against the fused one; peak memory of a step with and without fsdp."""
+    import torch.distributed as dist
+
+    from surya_tpu_torch.core import mesh as cmesh
+    from surya_tpu_torch.models import get_model
+    from surya_tpu_torch.models.losses import cross_entropy
+    from surya_tpu_torch.train import create_train_state, make_train_step
+
+    cmesh.maybe_initialize_distributed()
+    mesh = cmesh.create_mesh(device="cuda")
+    spec = parallel_spec("bfloat16", TRAIN_BATCH, {})
+    cfg = parallel_config(spec)
+    batch = tuple(torch.from_numpy(a).cuda()
+                  for a in train_batch(cfg, TRAIN_BATCH))
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    runs = {}
+    for name, m in (("plain", None), ("dp", mesh)):
+        model = get_model(cfg.model, image_size=cfg.data.image_size, seed=0)
+        state, tx = create_train_state(model, cfg, mesh=m)
+        runs[name] = (model, state, make_train_step(model, tx, cfg, mesh=m))
+    ms = {"plain": [], "dp": []}
+    for _ in range(3):   # in turns
+        for name, (_, state, step) in runs.items():
+            ms[name].append(_median_ms(lambda: step(state, batch), reps=5,
+                                       warmup=2))
+    out["step_ms"] = {k: statistics.median(v) for k, v in ms.items()}
+    before = cmesh.collective_bytes["all_reduce"]
+    runs["dp"][2](runs["dp"][1], batch)
+    out["all_reduce_bytes_per_step"] = (cmesh.collective_bytes["all_reduce"]
+                                        - before)
+
+    model, state, _ = runs["plain"]
+    model.train()
+    world = cmesh.RowShard(TRAIN_BATCH, ((0, TRAIN_BATCH),),
+                           dist.group.WORLD)
+
+    def fwd_bwd(rows):
+        state.optimizer.zero_grad(set_to_none=True)
+        with cmesh.batch_rows(rows):
+            loss = cross_entropy(model(batch[0], batch[1], state.generator),
+                                 batch[2])
+            loss.backward()
+
+    bn = {"fused": [], "global": []}
+    for _ in range(3):
+        bn["fused"].append(_median_ms(lambda: fwd_bwd(None), reps=5,
+                                      warmup=2))
+        bn["global"].append(_median_ms(lambda: fwd_bwd(world), reps=5,
+                                       warmup=2))
+    out["fwd_bwd_ms"] = {k: statistics.median(v) for k, v in bn.items()}
+    del runs, model, state
+    peaks = {}
+    for name, fsdp in (("dp", False), ("fsdp", True)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        c = parallel_config({**spec, "fsdp": fsdp})
+        model = get_model(c.model, image_size=c.data.image_size, seed=0)
+        state, tx = create_train_state(model, c, mesh=mesh)
+        step = make_train_step(model, tx, c, mesh=mesh)
+        for _ in range(2):
+            step(state, batch)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+        del model, state, tx, step
+    out["peak_memory_bytes"] = peaks
+    with open(out_file, "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _param_errors(got, want, names, lr):
+    """The state after one AdamW step against one process's. Adam's first
+    update is lr·g/(|g| + 1e-8): ±lr whatever the gradient's scale, so the
+    gradients are held through the first moments (0.1·g, relative L2 over
+    all parameters) and the parameters per element: those whose gradient
+    is resolved (larger than 10× the two runs' difference and than 1e-6)
+    relative to the largest parameter, every element to 2·lr plus that;
+    the unresolved share is reported."""
+    g0 = torch.cat([want["optimizer"]["state"][i]["exp_avg"].reshape(-1)
+                    for i in range(len(names))]).double()
+    g1 = torch.cat([got["optimizer"]["state"][i]["exp_avg"].reshape(-1)
+                    for i in range(len(names))]).double()
+    p0 = torch.cat([want["model"][n].reshape(-1) for n in names]).double()
+    p1 = torch.cat([got["model"][n].reshape(-1) for n in names]).double()
+    g0, g1 = 10 * g0, 10 * g1
+    loose = (g1 != g0) & ((g0.abs() < 10 * (g1 - g0).abs())
+                          | (g0.abs() < 1e-6))
+    d, scale = (p1 - p0).abs(), float(p0.abs().max())
+    return {"grads": float((g1 - g0).norm() / g0.norm()),
+            "params": float(torch.where(loose, 0.0, d).max()) / scale,
+            "params_beyond_2lr": max(0.0, float(d.max()) - 2 * lr) / scale,
+            "unresolved_share": float(loose.double().mean())}
+
+
+def parallel_phase(quadrant, fusion_head, card):
+    """The port's parallel path on the one card. (a) The CLI as a user
+    runs it under ``torchrun --nproc-per-node=1`` (one NCCL rank): ``train
+    --preset quadtree-fusion`` for one epoch of the loop phase's synthetic
+    pack with ``--train.zero1=true`` and with ``--train.fsdp=true`` (both
+    at once), each child's kernel launches counted, each final checkpoint
+    served by a one-device ``Predictor``. (b) Two ranks on the card over
+    gloo with CUDA tensors: the dp2 step (bf16, global batch 256, dropout
+    0.5; and f32 at batch 16) against the one-process step on the global
+    batch with the same generators (loss, logits, BN statistics,
+    parameters), then model=2 with every kernel call held against its
+    plain version. (c) One NCCL rank: the DP step against the plain one,
+    bytes all-reduced, the global-batch BN's cost and fsdp's peak memory.
+    → the kernel launches of (a) and (b)."""
+    import shutil
+    import tempfile
+
+    from surya_tpu_torch.core.checkpoint import load_checkpoint_variables
+    from surya_tpu_torch.data.packed import pack_arrays
+    from surya_tpu_torch.infer.serve import Predictor
+    from surya_tpu_torch.models import get_model
+    from surya_tpu_torch.train.steps import trainable_mask
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="surya_parallel_")
+    try:
+        pack = os.path.join(root, "pack")
+        pack_arrays(pack, synthetic_splits(LOOP_SPLITS), CLASS_NAMES)
+        train = ["-m", "surya_tpu_torch", "train", "--preset",
+                 "quadtree-fusion", f"--data.packed_dir={pack}",
+                 "--train.epochs=1"]
+        forms = ("zero1", "fsdp")
+        cli = finish({f: start_torchrun(1, [*train, "--out",
+                                            os.path.join(root, f),
+                                            f"--train.{f}=true"])
+                      for f in forms}, timeout=400)
+        steps = LOOP_SPLITS["train"] // 16
+        want = {"training": steps,
+                "inference": (LOOP_SPLITS["valid"] + LOOP_SPLITS["test"])
+                // 16}
+        cfg = parallel_config(parallel_spec("bfloat16", 0, {}))
+        rng = np.random.default_rng(7)
+        images = rng.integers(0, 256, (128, 224, 224, 3), np.uint8)
+        feats = rng.normal(size=(128, 47)).astype(np.float32)
+        served, cli_launches = {}, {}
+        for form in forms:
+            summary = last_json(cli[form][0])
+            got = summary["kernel_launches"]
+            if got["quadrant"] != want or got["fusion_head"] != want:
+                raise AssertionError(f"{form}: launches {got} != {want}")
+            cli_launches[form] = got
+            sd = load_checkpoint_variables(os.path.join(root, form, "ckpt"))
+            _, probs = Predictor(cfg.model, sd, batch_size=64,
+                                 param_dtype=torch.bfloat16,
+                                 input_dtype="uint8").predict(images, feats)
+            if not (probs.shape == (128, 8) and np.isfinite(probs).all()
+                    and np.allclose(probs.sum(1), 1.0, atol=1e-3)):
+                raise AssertionError(f"{form}: checkpoint serves badly")
+            served[form] = {"test": summary["test"],
+                            "seconds": cli[form][1]}
+
+        gdir = os.path.join(root, "gloo")
+        os.makedirs(gdir)
+        t0 = time.perf_counter()
+        finish({"gloo": start_torchrun(2, [os.path.abspath(__file__),
+                                           "--parallel-gloo", gdir])},
+               timeout=400)
+        gloo_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(gdir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+        refs = {name: parallel_step(PARALLEL_RUNS[name])
+                for name in ("dp2_bf16", "dp2_f32")}
+        names = [n for n, t in trainable_mask(
+            get_model(cfg.model, image_size=64), cfg.model.name,
+            cfg.model.freeze_backbone).items() if t]
+        held, errs = None, {}
+        for name in PARALLEL_RUNS:
+            ref = refs["dp2_f32" if "f32" in name else "dp2_bf16"]
+            tol = PARALLEL_TOL["float32" if "f32" in name else "bfloat16"]
+            got = ranks[0][name]
+            logits = (torch.cat([ranks[0][name]["logits"],
+                                 ranks[1][name]["logits"]])
+                      if name.startswith("dp2") else got["logits"])
+            row = {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+                   "logits": compare(logits, ref["logits"])[1],
+                   "bn_stats": max(compare(got["model"][k], v)[1]
+                                   for k, v in ref["model"].items()
+                                   if "running" in k)}
+            row.update(_param_errors(got, ref, names, cfg.train.lr))
+            row["launches"] = got["launches"]
+            row["bytes"] = got["bytes"]
+            errs[name] = row
+            bad = max(row[k] for k in ("loss", "logits", "bn_stats",
+                                       "params", "params_beyond_2lr")) > tol
+            if "f32" in name:
+                bad |= (row["grads"] > PARALLEL_GRAD_TOL
+                        or row["unresolved_share"] > 0.05)
+            if bad:
+                raise AssertionError(f"{name} vs one process: {row}")
+            if got["held"] is not None:
+                held = got["held"]
+        if held is None:
+            raise AssertionError("the model=2 run held no kernel call")
+
+        nfile = os.path.join(root, "nccl.json")
+        finish({"nccl": start_torchrun(1, [os.path.abspath(__file__),
+                                           "--parallel-nccl", nfile])},
+               timeout=300)
+        with open(nfile) as f:
+            nccl = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "parallel", "cli": served, "cli_launches": cli_launches,
+          "gloo_two_ranks": errs, "gloo_seconds": gloo_s,
+          "tp2_held": held, "nccl_one_rank": nccl, "seconds": seconds,
+          **card})
+    # the four model forms' launches on this path: both CLI children and
+    # every gloo run on rank 0 (the head's dropout forward outside a
+    # gradient counts as its inference launch)
+    total = {"quadrant": 0, "quadrant_train": 0, "fusion_head": 0,
+             "fusion_head_train": 0}
+    for form in forms:
+        for kname in ("quadrant", "fusion_head"):
+            total[kname] += cli_launches[form][kname]["inference"]
+            total[f"{kname}_train"] += cli_launches[form][kname]["training"]
+    for name in PARALLEL_RUNS:
+        got = ranks[0][name]["launches"]
+        for kname in ("quadrant", "fusion_head"):
+            total[kname] += got[kname] - got[f"{kname}_train"]
+            total[f"{kname}_train"] += got[f"{kname}_train"]
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3572,6 +3966,11 @@ def main() -> int:
     export_launches = export_phase(quadrant, fusion_head, card)
     torch.cuda.empty_cache()
     generate_launches = generate_phase(quadrant, fusion_head, card)
+    torch.cuda.empty_cache()
+    parallel_launches = parallel_phase(quadrant, fusion_head, card)
+    if min(parallel_launches.values()) < 1:
+        raise AssertionError(f"a kernel form was never launched on the "
+                             f"parallel path: {parallel_launches}")
 
     # name → (source, replaces, launches on its path, max |kernel - plain|
     # at the shape that path gives it, bf16)
@@ -3604,23 +4003,27 @@ def main() -> int:
                      "spatial": spatial_launches["quadrant"],
                      "temporal": temporal_launches["quadrant"],
                      "pose": pose_launches["quadrant"],
-                     "export": export_launches["quadrant"]},
+                     "export": export_launches["quadrant"],
+                     "parallel": parallel_launches["quadrant"]},
         "fusion_head": {"serve": serve_launches["fusion_head"],
                         "loop": loop_launches["fusion_head"]["inference"],
                         "spatial": spatial_launches["fusion_head"],
                         "temporal": temporal_launches["fusion_head"],
                         "pose": pose_launches["fusion_head"],
-                        "export": export_launches["fusion_head"]},
+                        "export": export_launches["fusion_head"],
+                        "parallel": parallel_launches["fusion_head"]},
         "quadrant_train": {"train": train_launches["quadrant"],
                            "loop": loop_launches["quadrant"]["training"],
                            "spatial": spatial_launches["quadrant_train"],
-                           "temporal": temporal_launches["quadrant_train"]},
+                           "temporal": temporal_launches["quadrant_train"],
+                           "parallel": parallel_launches["quadrant_train"]},
         "fusion_head_train": {
             "train": train_launches["fusion_head"],
             "loop": loop_launches["fusion_head"]["training"],
             "spatial": spatial_launches["fusion_head_train"],
             "temporal": temporal_launches["fusion_head_train"],
-            "generate": generate_launches["fusion_head_train"]},
+            "generate": generate_launches["fusion_head_train"],
+            "parallel": parallel_launches["fusion_head_train"]},
         "channel_stats": {"stem_probe": stem_launches["channel_stats"],
                           "loop": loop_launches["channel_stats"],
                           "temporal": temporal_launches["channel_stats"]},
@@ -3650,5 +4053,11 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--serve-artifact"]:   # the export phase's child
         emit(serve_artifact(json.loads(sys.argv[2])))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--parallel-gloo"]:   # the parallel phase's ranks
+        parallel_gloo_child(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--parallel-nccl"]:
+        parallel_nccl_child(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

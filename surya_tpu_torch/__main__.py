@@ -23,6 +23,13 @@
   python -m surya_tpu_torch export-torch CKPT OUT.pth [--preset P]
   python -m surya_tpu_torch check [--device cpu]
 
+``train``, ``eval`` and ``compare`` run on a mesh of ranks under
+``torchrun`` (one process per device; ``--mesh.data``/``--mesh.model``
+split it, and ``--train.zero1=true`` / ``--train.fsdp=true`` shard the
+state):
+
+  torchrun --nproc-per-node=N -m surya_tpu_torch train --mesh.data=N ...
+
 CKPT is a checkpoint directory written by ``train`` (its latest step), one
 of its ``<step>.pt`` files, a ``.pt`` of the port's ``state_dict`` or a
 ``.npz`` of a JAX variable tree (``/``-joined keys). ``pose-train`` writes
@@ -44,10 +51,11 @@ import os
 import sys
 
 
-def _build_data(cfg, device):
+def _build_data(cfg, device, pad_eval_to: int = 1):
     """Pick the data source: synthetic, sequence (temporal models: packed
     or the ``.npz`` windows) or disk/packed (spatial models). Batches bound
-    for a card are pinned by the source."""
+    for a card are pinned by the source; eval batches are padded to a
+    multiple of ``pad_eval_to`` (the mesh's data axis) with label −1 rows."""
     from surya_tpu_torch.models.registry import TEMPORAL_MODELS
 
     temporal = cfg.model.name in TEMPORAL_MODELS
@@ -68,7 +76,8 @@ def _build_data(cfg, device):
                                        // cfg.model.num_classes, 2),
                          seed=i, **kw)
                   for i, s in enumerate(("train", "valid", "test"))}
-        return ArrayDataSource(splits, cfg.data.batch_size)
+        return ArrayDataSource(splits, cfg.data.batch_size,
+                               pad_eval_to=pad_eval_to)
     if temporal:
         if cfg.data.seq_len != cfg.model.seq_len:
             raise ValueError(
@@ -80,19 +89,45 @@ def _build_data(cfg, device):
             from surya_tpu_torch.data.packed import PackedSequenceSource
 
             return PackedSequenceSource(cfg.data, seed=cfg.train.seed,
+                                        pad_eval_to=pad_eval_to,
                                         pin_memory=pin)
         from surya_tpu_torch.data.sequences import SequenceDataSource
 
         return SequenceDataSource(cfg.data, seed=cfg.train.seed,
-                                  pin_memory=pin)
+                                  pad_eval_to=pad_eval_to, pin_memory=pin)
     if cfg.data.packed_dir:
         from surya_tpu_torch.data.packed import PackedDataSource
 
         return PackedDataSource(cfg.data, seed=cfg.train.seed,
-                                pin_memory=pin)
+                                pad_eval_to=pad_eval_to, pin_memory=pin)
     from surya_tpu_torch.data.dataset import DiskDataSource
 
-    return DiskDataSource(cfg.data, seed=cfg.train.seed, pin_memory=pin)
+    return DiskDataSource(cfg.data, seed=cfg.train.seed,
+                          pad_eval_to=pad_eval_to, pin_memory=pin)
+
+
+def _build_mesh(cfg, device):
+    """``init_process_group`` under ``torchrun`` (a no-op without it), the
+    mesh of the ``--mesh.*`` config over its ranks, and on the card one
+    build of the kernels (rank 0's) before the other ranks load them."""
+    import torch.distributed as dist
+
+    from surya_tpu_torch.core.mesh import (
+        MeshSpec,
+        create_mesh,
+        maybe_initialize_distributed,
+    )
+
+    maybe_initialize_distributed(device)
+    mesh = create_mesh(MeshSpec(data=cfg.mesh.data, model=cfg.mesh.model,
+                                seq=cfg.mesh.seq), device)
+    if mesh.distributed and device.type == "cuda":
+        from surya_tpu_torch.ops.cuda import KERNELS, _build
+
+        if mesh.is_main:
+            _build.build_all(KERNELS)
+        dist.barrier()
+    return mesh
 
 
 def _config(args, rest):
@@ -152,25 +187,30 @@ def cmd_train(argv: list[str]) -> int:
 
         torch.autograd.set_detect_anomaly(True)
         cfg = cfg.override({"train.nan_guard": "false"})
-    os.makedirs(args.out, exist_ok=True)
     if "train.checkpoint_dir" not in overrides:
         cfg = cfg.override(
             {"train.checkpoint_dir": os.path.join(args.out, "ckpt")})
-    with open(os.path.join(args.out, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    mesh = _build_mesh(cfg, device)
+    if mesh.is_main:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "config.json"), "w") as f:
+            f.write(cfg.to_json())
 
-    data = _build_data(cfg, device)
-    logger = MetricsLogger(
+    data = _build_data(cfg, device, pad_eval_to=mesh.shape["data"])
+    logger = (MetricsLogger(
         os.path.join(args.out, "metrics.jsonl"),
         tensorboard_dir=(os.path.join(args.out, "tb")
                          if args.tensorboard else None))
+        if mesh.is_main else MetricsLogger(echo=False))
     try:
-        summary = train_and_evaluate(cfg, data, mesh=cfg.mesh, logger=logger,
+        summary = train_and_evaluate(cfg, data, mesh=mesh, logger=logger,
                                      resume=args.resume,
                                      profile_dir=args.profile_dir,
                                      device=device)
     finally:
         logger.close()
+    if not mesh.is_main:
+        return 0
 
     if args.plot:
         from surya_tpu_torch.utils.plotting import (
@@ -214,9 +254,13 @@ def cmd_eval(argv: list[str]) -> int:
     args, rest = ap.parse_known_args(argv)
     device = resolve_device(args.device)
     cfg, _ = _config(args, rest)
-    data = _build_data(cfg, device)
+    mesh = _build_mesh(cfg, device)
+    data = _build_data(cfg, device, pad_eval_to=mesh.shape["data"])
     out = evaluate_checkpoint(cfg, load_checkpoint_variables(args.checkpoint),
-                              data, split=args.split, device=device)
+                              data, split=args.split, device=device,
+                              mesh=mesh)
+    if not mesh.is_main:
+        return 0
     line = {k: (v.tolist() if hasattr(v, "tolist") else float(v))
             for k, v in out.items() if k != "confusion"}
     if device.type == "cuda":
@@ -398,9 +442,12 @@ def cmd_compare(argv: list[str]) -> int:
                     f"differs from entry 0's {v0!r}; all entries share "
                     "one data pipeline — pass matching --data.* "
                     "overrides")
-    summary = compare_models(entries, _build_data(cfg0, device),
-                             split=args.split, out_dir=args.out,
-                             device=device)
+    mesh = _build_mesh(cfg0, device)
+    summary = compare_models(entries, _build_data(
+        cfg0, device, pad_eval_to=mesh.shape["data"]), split=args.split,
+        out_dir=args.out, device=device, mesh=mesh)
+    if not mesh.is_main:
+        return 0
     if args.out:
         with open(os.path.join(args.out, "comparison.json"), "w") as f:
             json.dump(summary, f, indent=2)

@@ -57,7 +57,13 @@ def _cpu(tree):
 
 
 def snapshot(state) -> dict:
-    """A checkpoint-ready CPU copy of a ``TrainState``."""
+    """A checkpoint-ready CPU copy of a ``TrainState``. A sharded state
+    (``state.sharded``, on a mesh of several ranks) gives the same
+    single-device form; every rank must call it (it gathers)."""
+    if getattr(state, "sharded", False):
+        from surya_tpu_torch.parallel.zero import full_snapshot
+
+        return full_snapshot(state)
     return {"model": _cpu(state.model.state_dict()),
             "optimizer": _cpu(state.optimizer.state_dict()),
             "step": int(state.step),
@@ -65,7 +71,13 @@ def snapshot(state) -> dict:
 
 
 def load_snapshot(state, snap: dict) -> None:
-    """Put a :func:`snapshot` back into a ``TrainState``, in place."""
+    """Put a :func:`snapshot` back into a ``TrainState``, in place (each
+    rank its part of a sharded state)."""
+    if getattr(state, "sharded", False):
+        from surya_tpu_torch.parallel.zero import load_full_snapshot
+
+        load_full_snapshot(state, snap)
+        return
     state.model.load_state_dict(snap["model"], strict=True)
     state.optimizer.load_state_dict(snap["optimizer"])
     state.step = int(snap["step"])

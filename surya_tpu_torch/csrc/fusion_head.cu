@@ -13,8 +13,9 @@
 //
 // Random bits: Philox4x32-10 keyed by the 64-bit seed (read from device
 // memory, so the host never waits for it), counter (row, hidden unit, 0, 0),
-// first output word. The mask is a pure function of (seed, row, unit): it
-// does not depend on the tiling. The TPU kernel seeds its hardware generator
+// first output word; the row is the global batch's (a data-parallel rank
+// passes its first row as row_offset). The mask is a pure function of
+// (seed, row, unit): it does not depend on the tiling or on the ranks. The TPU kernel seeds its hardware generator
 // per batch block; those bits cannot be reproduced here, only their law.
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16): the head reads W1
@@ -83,6 +84,7 @@ struct TrainArgs {
   const long long* seed;        // device scalar; read only if threshold > 0
   unsigned threshold;           // keep iff bits >= threshold; 0 = no dropout
   float scale;                  // 1 / (1 - rate)
+  int row_offset;               // global row of x's first row (Philox)
 };
 
 // ---- f32: CUDA-core FMA (exact f32 products, for parity checks) ---------
@@ -105,7 +107,7 @@ __device__ void head_epilogue(float* hs, int rows,
         if (ta.threshold != 0u && h > 0.f) {
           const unsigned bits =
               philox_bits(static_cast<unsigned long long>(*ta.seed),
-                          static_cast<unsigned>(row0 + r),
+                          static_cast<unsigned>(ta.row_offset + row0 + r),
                           static_cast<unsigned>(h0 + j));
           h = bits >= ta.threshold ? h * ta.scale : 0.f;
         }
@@ -241,7 +243,8 @@ head_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         const int i = 4 * rank * per + e;
         const unsigned bits = philox_bits(
             seed,
-            static_cast<unsigned>(row0 + rbase + 8 * ((i >> 1) & 1)),
+            static_cast<unsigned>(ta.row_offset + row0 + rbase +
+                                  8 * ((i >> 1) & 1)),
             static_cast<unsigned>(n0 + (i >> 2) * 8 + (lane & 3) * 2 +
                                   (i & 1)));
         keep |= static_cast<unsigned long long>(bits >= ta.threshold) << e;
@@ -585,18 +588,19 @@ extern "C" int fusion_head_plan(int B, int D, int H, int is_bf16,
 // partial (fusion_head_n_tiles(...), B, C) f32 scratch; out (B,C) f32.
 // Training form: h_out (B,H) in the compute dtype or null; threshold > 0
 // turns dropout on with the int64 seed at device address seed and
-// scale = 1/(1-rate). With h_out null and threshold 0 this is the
-// inference launch. Returns the first CUDA error of the two launches.
+// scale = 1/(1-rate); the dropout bits of row r are those of global row
+// row_offset + r. With h_out null and threshold 0 this is the inference
+// launch. Returns the first CUDA error of the two launches.
 extern "C" int fusion_head_forward(const void* x, const void* w1,
                                    const void* b1, const void* w2,
                                    const void* b2, void* partial, void* out,
                                    void* h_out, const void* seed, int B,
                                    int D, int H, int C, int is_bf16,
                                    unsigned threshold, float scale,
-                                   void* stream) {
+                                   int row_offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const TrainArgs ta{h_out, static_cast<const long long*>(seed), threshold,
-                     scale};
+                     scale, row_offset};
   int err = h_out != nullptr || threshold != 0u
                 ? launch_head<true>(x, w1, b1, w2, partial, B, D, H, C,
                                     is_bf16, ta, s)

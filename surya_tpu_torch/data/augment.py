@@ -32,6 +32,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from surya_tpu_torch.core.mesh import current_rows
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -259,11 +261,18 @@ def augment_batch(generator: torch.Generator, images: torch.Tensor,
                   rotation_deg: float = 10.0,
                   blur_sigma: tuple = (0.1, 0.5)) -> torch.Tensor:
     """The full train-time augmentation: draw (on the generator's
-    device), then apply (on the images')."""
+    device), then apply (on the images'). In a data-parallel step
+    (:func:`core.mesh.current_rows`) the draw is the global batch's and
+    the images are this rank's rows of it."""
     b, h, w, _ = images.shape
-    params = draw_augment_params(generator, b, h, w, scale_min, hflip_prob,
-                                 jitter, rotation_deg, blur_sigma)
-    params = {k: None if v is None else v.to(images.device)
+    rows = current_rows()
+    if rows is not None and rows.rows != b:
+        raise ValueError(f"{b} images are not the rank's {rows.rows} rows")
+    params = draw_augment_params(generator, b if rows is None else rows.total,
+                                 h, w, scale_min, hflip_prob, jitter,
+                                 rotation_deg, blur_sigma)
+    params = {k: None if v is None else (
+                  v if rows is None else rows.take(v)).to(images.device)
               for k, v in params.items()}
     return apply_augment(images, params, out_size)
 

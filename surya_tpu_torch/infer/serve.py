@@ -13,7 +13,12 @@ section C). ``param_dtype`` casts the float weights and keeps the BN
 running statistics in f32.
 
 The forward runs on the card (``device=None`` → ``"cuda"``, raising if
-there is none) unless the caller passes ``device="cpu"``.
+there is none) unless the caller passes ``device="cpu"``. With a ``mesh``
+of several ranks (``core/mesh.py``, under ``torchrun``) every rank calls
+``predict`` with the same request: each batch is split over 'data', the
+parameters follow the tensor-parallel rule over 'model'
+(``parallel/sharding.py``), and the predictions are gathered, so every
+rank returns the whole batch.
 
 :class:`ServingForward` is the one serving forward (JAX's
 ``_make_forward``): wire → f32 pixels → ablation → model → f32 softmax and
@@ -116,7 +121,7 @@ class Predictor:
     ``models.from_jax.from_jax_variables`` of a JAX tree)."""
 
     def __init__(self, cfg: ModelConfig, state_dict, batch_size: int = 32,
-                 image_size: int = 224, param_dtype=None,
+                 image_size: int = 224, mesh=None, param_dtype=None,
                  input_dtype=torch.float32, device=None):
         self.cfg = cfg
         self.batch_size = batch_size
@@ -126,15 +131,35 @@ class Predictor:
         self.serving = serving_forward(cfg, state_dict, image_size,
                                        param_dtype, self.device)
         self.model = self.serving.model
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        if self.mesh is not None:
+            from surya_tpu_torch.core.mesh import DATA_AXIS
+            from surya_tpu_torch.parallel.sharding import partition_params
+
+            ddim = self.mesh.shape[DATA_AXIS]
+            if batch_size % ddim:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by the "
+                    f"mesh data axis ({ddim})")
+            partition_params(self.model, self.mesh)
 
     @torch.inference_mode()
     def _forward(self, img: np.ndarray, ft: np.ndarray):
+        rows = None
+        if self.mesh is not None:   # this rank's rows of the batch
+            rows = self.mesh.row_shard(img.shape[0])
+            img, ft = rows.take(img), rows.take(ft)
         images = torch.from_numpy(img)
         if self.input_dtype == torch.bfloat16:
             images = images.to(torch.bfloat16)   # halve the host→device copy
         preds, probs = self.serving(
             images.to(self.device, non_blocking=True),
             torch.from_numpy(ft).to(self.device, non_blocking=True))
+        if rows is not None and rows.group is not None:
+            from surya_tpu_torch.core.mesh import all_gather_stack
+
+            preds, probs = (all_gather_stack(t, rows.group).flatten(0, 1)
+                            for t in (preds, probs))
         return preds.cpu().numpy(), probs.cpu().numpy()
 
     def cost_analysis(self) -> dict:

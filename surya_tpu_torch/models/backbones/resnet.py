@@ -36,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from surya_tpu_torch.core.mesh import all_gather_stack, all_reduce_, current_rows
 from surya_tpu_torch.models.norms import GroupNorm, LayerNorm
 
 STAGES = ("stem", "layer1", "layer2", "layer3", "layer4")
@@ -118,6 +119,64 @@ class Conv(nn.Module):
                         self.padding, self.dilation, self.groups)
 
 
+def merge_moments(stats: torch.Tensor):
+    """Chan's parallel merge of per-part (count, mean, M2), ``stats``
+    (parts, 3, C) f32 → the whole's (count, mean, biased variance)."""
+    n, mean, m2 = stats.unbind(1)
+    total = n.sum(0)
+    merged = (n * mean).sum(0) / total
+    m2 = m2.sum(0) + (n * (mean - merged) ** 2).sum(0)
+    return total, merged, m2 / total
+
+
+def _channel_dims(x: torch.Tensor) -> list[int]:
+    return [0] + list(range(2, x.dim()))
+
+
+def global_batch_stats(x: torch.Tensor, group):
+    """Per-channel (count, mean, biased variance) of the global batch: this
+    rank's f32 (count, mean, M2) in two passes, gathered over the data
+    axis ``group`` and merged (:func:`merge_moments`)."""
+    dims = _channel_dims(x)
+    xf = x.float()
+    n = x.numel() // x.shape[1]
+    mean = xf.mean(dims)
+    m2 = ((xf - mean.view(-1, *([1] * (x.dim() - 2)))) ** 2).sum(dims)
+    local = torch.stack([torch.full_like(mean, float(n)), mean, m2])
+    return merge_moments(all_gather_stack(local, group))
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BN over the global batch of a data-parallel step: the
+    merged statistics forward; backward, the two per-channel sums Σdy and
+    Σdy·(x − mean) all-reduced over the data axis, so the input gradient
+    is the global batch's. The weight and bias gradients are this rank's
+    sums (the step's gradient all-reduce adds the ranks')."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, var, count, eps, group):
+        y = F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+        invstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.count, ctx.group = count, group
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, invstd = ctx.saved_tensors
+        shape = (-1,) + (1,) * (x.dim() - 2)
+        dims = _channel_dims(x)
+        dyf, xmu = dy.float(), x.float() - mean.view(shape)
+        local = torch.stack([dyf.sum(dims), (dyf * xmu).sum(dims)])
+        sum_dy, sum_dy_xmu = all_reduce_(local.clone(), ctx.group)
+        n = ctx.count
+        dx = (dyf - (sum_dy / n).view(shape)
+              - xmu * (invstd ** 2 * sum_dy_xmu / n).view(shape)) * (
+                  invstd * weight).view(shape)
+        return (dx.to(x.dtype), local[1] * invstd, local[0],
+                None, None, None, None, None)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm with flax's numerics (eps 1e-5, f32 statistics, output in
     the input's dtype).
@@ -127,7 +186,19 @@ class BatchNorm(nn.Module):
     the running statistics by ``r ← 0.9·r + 0.1·batch``, with the *biased*
     variance as flax ``nn.BatchNorm(momentum=0.9)`` does; torch's own
     ``BatchNorm2d`` would store the unbiased one (6.7% apart at n = 16).
-    The buffers are updated in place during the forward, as in torch."""
+    The buffers are updated in place during the forward, as in torch.
+
+    The batch variance is a two-pass one, not flax's ``E[x²] − E[x]²``
+    (``use_fast_variance``), whose f32 cancellation puts flax 4e-3 from an
+    f64 reference on a map shifted by 30σ where this form stays within
+    2e-5 (``tests/test_torch_mesh.py``). On the card one fused cuDNN pass
+    computes it; on the CPU the statistics are taken in two passes of
+    torch's pairwise sums (:func:`global_batch_stats`), because the CPU's
+    fused channels-last kernel sums naively on one thread (9.5e-5 from f64
+    at 30σ). Under data parallelism (:func:`core.mesh.current_rows` with
+    a data group) the statistics are the global batch's: each rank's
+    (count, mean, M2), merged by Chan's formula (:class:`_GlobalBatchNorm`).
+    """
 
     momentum = 0.9   # flax convention: the share the running value keeps
 
@@ -154,16 +225,28 @@ class BatchNorm(nn.Module):
         if n < 2:
             raise ValueError("train-mode BatchNorm needs more than one "
                              f"value per channel, got input {tuple(x.shape)}")
-        # One fused pass: with momentum 1 the throw-away buffers come back
-        # holding the batch mean and the unbiased batch variance.
-        mean = torch.zeros_like(self.running_mean)
-        var = torch.ones_like(self.running_var)
-        y = F.batch_norm(x, mean, var, weight, bias, True, 1.0, self.eps)
+        rows = current_rows()
+        group = None if rows is None else rows.group
+        if x.is_cuda and group is None:
+            # One fused pass: with momentum 1 the throw-away buffers come
+            # back holding the batch mean and the unbiased batch variance.
+            mean = torch.zeros_like(self.running_mean)
+            var = torch.ones_like(self.running_var)
+            y = F.batch_norm(x, mean, var, weight, bias, True, 1.0, self.eps)
+            unbias = (n - 1) / n
+        else:
+            with torch.no_grad():
+                _, mean, var = global_batch_stats(x, group)
+            y = _GlobalBatchNorm.apply(
+                x, weight, bias, mean, var,
+                float(n * (1 if group is None else rows.ranks)), self.eps,
+                group)
+            unbias = 1.0
         with torch.no_grad():
             keep = self.momentum
             self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
             self.running_var.mul_(keep).add_(
-                var, alpha=(1.0 - keep) * (n - 1) / n)   # biased variance
+                var, alpha=(1.0 - keep) * unbias)   # biased variance
         return y
 
 

@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from surya_tpu_torch.core.mesh import current_rows, draw_rows
 from surya_tpu_torch.models.backbones.resnet import (  # noqa: F401
     Conv,
     reset_dense,
@@ -64,12 +65,21 @@ def flax_dropout(x, rate: float, generator, training: bool, shape=None):
     """flax ``Dropout``: keep with probability 1 - rate, scale the kept by
     1/(1 - rate); the mask is drawn from ``generator`` (none in eval mode
     or at rate 0). ``shape``: a smaller mask shape that broadcasts over
-    ``x`` (one mask shared over the leading dimensions)."""
+    ``x`` (one mask shared over the leading dimensions).
+
+    A mask over the batch (``shape`` None) is the global batch's: in a
+    data-parallel step (:func:`core.mesh.current_rows`) every rank draws
+    the whole mask from the shared generator and keeps its rows, so the
+    step is the single-device step on the global batch."""
     g = dropout_generator(generator, rate, training)
     if g is None:
         return x
-    keep = torch.rand(x.shape if shape is None else shape, generator=g,
-                      device=x.device) >= rate
+    if shape is None:
+        keep = draw_rows(lambda s: torch.rand(s, generator=g,
+                                              device=x.device),
+                         x.shape[0], *x.shape[1:]) >= rate
+    else:
+        keep = torch.rand(shape, generator=g, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -128,16 +138,19 @@ class FusionClassifier(nn.Module):
 
     def forward(self, x, generator=None):
         g = dropout_generator(generator, self.dropout, self.training)
-        rate, seed = 0.0, None
+        rate, seed, row_offset = 0.0, None, 0
         if g is not None:
             # per-step scalar seed from the dropout stream, drawn on x's
             # device: the kernel reads it there, the host never waits
             rate = self.dropout
             seed = torch.randint(0, 2 ** 62, (1,), generator=g,
                                  device=x.device, dtype=torch.int64)
+            rows = current_rows()   # the mask of the global batch's rows
+            if rows is not None and rows.rows != rows.total:
+                row_offset = rows.start
         return fusion_head(x.to(self.dtype).contiguous(), self.fc1.weight,
                            self.fc1.bias, self.fc2.weight, self.fc2.bias,
-                           rate=rate, seed=seed)
+                           rate=rate, seed=seed, row_offset=row_offset)
 
 
 def fuse_by_mode(mode: str, image_feat, num_feat):

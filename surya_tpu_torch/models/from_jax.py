@@ -75,6 +75,21 @@ def _lstm_cell(prefix: str, cell: dict, out: dict) -> None:
             np.ascontiguousarray(stack(kind, leaf)))
 
 
+def output_axis(name: str, ndim: int) -> int:
+    """The axis of the port's parameter ``name`` that holds its flax
+    leaf's last (output) axis, by this module's mapping: a ``kernel``
+    becomes a ``weight`` through ``_TO_OUT_IN``, which moves that axis
+    first, as does the LSTM gates' stacking; every other leaf
+    (``quadrant_conv_kernel`` in HWIO, bare parameters, the MoE experts'
+    ``w1``/``w2``) keeps JAX's layout, so its last axis."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "weight" and ndim in _TO_OUT_IN:
+        return _TO_OUT_IN[ndim].index(ndim - 1)
+    if leaf in ("weight_ih", "weight_hh"):
+        return 0
+    return ndim - 1
+
+
 def from_jax_variables(variables) -> dict[str, torch.Tensor]:
     """``{"params": ..., "batch_stats": ...}`` → the port's state_dict."""
     out = {}

@@ -1,7 +1,7 @@
 """Model registry — the single ``get_model`` factory, mirroring
 ``surya_tpu/models/registry.py``: every family of the JAX registry, spatial
-and temporal. FACT's parallel variants (``moe_experts > 0``) raise
-``NotImplementedError`` naming ROADMAP A11.
+and temporal; ``moe_experts > 0`` gives FACT its MoE FFN
+(``parallel/moe.py``).
 
 As in JAX, ``cfg.dropout`` (None: the family's own default) reaches the
 quadtree and the temporal families only: the hierarchical and standard

@@ -23,9 +23,11 @@ its parameters (``requires_grad=False``, ``train/steps.py``), so no
 backward graph is built through its 86M parameters: the counterpart of
 JAX's ``stop_frozen_gradients``.
 
-The MoE FFN (``moe_experts > 0``), ring attention over a ``cp_mesh`` and
-the pipelined stack (``fact_apply_pipelined``) belong to parallelism and
-raise, naming ROADMAP A11.
+``moe_experts > 0`` replaces every fusion layer's FFN by the MoE FFN of
+``parallel/moe.py`` (its auxiliary loss reaches the train step's
+objective). Expert parallelism over a ``moe_mesh`` 'expert' axis, ring
+attention over a ``cp_mesh`` and the pipelined stack
+(``fact_apply_pipelined``) raise, naming ROADMAP A11b.
 """
 
 from __future__ import annotations
@@ -40,26 +42,30 @@ from surya_tpu_torch.models.backbones.vit import (
 )
 from surya_tpu_torch.models.common import dense, flax_dropout, reset_model
 from surya_tpu_torch.models.norms import LayerNorm
+from surya_tpu_torch.parallel.moe import MoEFFN
 
-_A11 = "is not ported yet: ROADMAP A11 (parallelism)"
+_A11B = "is not ported yet: ROADMAP A11b (FACT's parallel variants)"
 
 
 class PostLNEncoderLayer(nn.Module):
     """torch ``nn.TransformerEncoderLayer``'s structure (post-LN, ReLU FFN)
     with flax's numerics: ln1(x + drop(attn(x))), then
-    ln2(x + drop(ff2(drop(relu(ff1(x))))))."""
+    ln2(x + drop(ff2(drop(relu(ff1(x)))))); with ``moe_experts`` the FFN
+    is the MoE FFN ``moe`` (JAX's name)."""
 
     def __init__(self, dim: int, num_heads: int = 8, ff_dim: int = 3072,
                  dropout: float = 0.1, dtype=torch.bfloat16,
-                 moe_experts: int = 0):
+                 moe_experts: int = 0, moe_top_k: int = 2):
         super().__init__()
-        if moe_experts > 0:
-            raise NotImplementedError(f"the MoE FFN (moe_experts > 0) {_A11}")
         self.attn = MultiHeadDotProductAttention(dim, num_heads, dropout,
                                                  dtype)
         self.ln1 = LayerNorm(dim, dtype)
-        self.ff1 = nn.Linear(dim, ff_dim)
-        self.ff2 = nn.Linear(ff_dim, dim)
+        if moe_experts:
+            self.moe = MoEFFN(dim, moe_experts, ff_dim, moe_top_k,
+                              dropout=dropout, dtype=dtype)
+        else:
+            self.ff1 = nn.Linear(dim, ff_dim)
+            self.ff2 = nn.Linear(ff_dim, dim)
         self.ln2 = LayerNorm(dim, dtype)
         self.dropout, self.dtype = dropout, dtype
 
@@ -68,8 +74,11 @@ class PostLNEncoderLayer(nn.Module):
             return flax_dropout(t, self.dropout, generator, self.training)
 
         x = self.ln1(x + drop(self.attn(x, generator)))
-        y = dense(drop(F.relu(dense(x, self.ff1, self.dtype))), self.ff2,
-                  self.dtype)
+        if hasattr(self, "moe"):
+            y = self.moe(x, generator)
+        else:
+            y = dense(drop(F.relu(dense(x, self.ff1, self.dtype))), self.ff2,
+                      self.dtype)
         return self.ln2(x + drop(y))
 
 
@@ -80,11 +89,14 @@ class FactModel(nn.Module):
                  dropout: float = 0.1, dtype=torch.bfloat16,
                  freeze_backbone: bool = True, vit_depth: int = 12,
                  vit_heads: int = 12, image_size: int = 224,
-                 cp_mesh=None, moe_experts: int = 0, moe_top_k: int = 2):
+                 cp_mesh=None, moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_mesh=None):
         super().__init__()
         if cp_mesh is not None:
-            raise NotImplementedError(f"ring attention over a cp_mesh {_A11}")
-        del moe_top_k   # read only by the MoE FFN, which raises
+            raise NotImplementedError(f"ring attention over a cp_mesh {_A11B}")
+        if moe_mesh is not None and moe_mesh.shape.get("expert", 1) > 1:
+            raise NotImplementedError(
+                f"expert parallelism (an 'expert' axis > 1) {_A11B}")
         d = embed_dim
         self.seq_len, self.num_layers, self.dtype = seq_len, num_layers, dtype
         self.freeze_backbone = freeze_backbone
@@ -98,7 +110,7 @@ class FactModel(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, 2 * seq_len + 1, d))
         for i in range(num_layers):
             self.add_module(f"fusion{i}", PostLNEncoderLayer(
-                d, num_heads, 4 * d, dropout, dtype, moe_experts))
+                d, num_heads, 4 * d, dropout, dtype, moe_experts, moe_top_k))
         self.head_ln = LayerNorm(d, dtype)
         self.head_fc = nn.Linear(d, num_classes)
 
@@ -114,6 +126,9 @@ class FactModel(nn.Module):
         for name, child in self.named_children():
             if name != "vit_backbone":
                 reset_model(child, generator)
+        for m in self.modules():
+            if isinstance(m, MoEFFN):
+                m.reset_parameters(generator)
         self.vit_backbone.reset_parameters(generator)
         with torch.no_grad():
             for p in (self.token_type_embed, self.cls_token, self.pos_embed):
@@ -159,4 +174,4 @@ class FactModel(nn.Module):
 
 def fact_apply_pipelined(*args, **kwargs):
     """JAX's GPipe-scheduled FACT forward (``parallel/pipeline.py``)."""
-    raise NotImplementedError(f"fact_apply_pipelined {_A11}")
+    raise NotImplementedError(f"fact_apply_pipelined {_A11B}")

@@ -21,7 +21,9 @@ Dropout keeps a unit iff its 32 random bits are at least
 ``1/(1-rate)``. The bits are Philox4x32-10 keyed by a 64-bit seed with the
 counter (row, unit, 0, 0): a pure function of (seed, row, unit), written
 once in the kernel and once here (:func:`philox_bits`), so a CPU tensor
-gets the very mask the card draws. The TPU's hardware generator gives
+gets the very mask the card draws. ``row`` is the row of the global batch:
+a data-parallel rank passes its first row as ``row_offset``, so the ranks'
+masks are the rows of the single-device mask. The TPU's hardware generator gives
 other bits of the same law. ``seed`` is a Python int or an int64 tensor of
 one element on x's device; the kernel reads it from device memory, so the
 host never waits for it.
@@ -57,7 +59,7 @@ _P, _I = _build.P, _build.I
 _SIGNATURES = {"fusion_head_n_tiles": [_I] * 4,
                "fusion_head_plan": [_I] * 4 + [_P],
                "fusion_head_forward": ([_P] * 9 + [_I] * 5
-                                       + [_build.U, _build.F, _P])}
+                                       + [_build.U, _build.F, _I, _P])}
 _M32 = 0xFFFFFFFF
 
 
@@ -79,13 +81,15 @@ def _philox4x32(counter, key):
     return c0, c1, c2, c3
 
 
-def philox_bits(seed, rows: int, units: int, device=None) -> torch.Tensor:
+def philox_bits(seed, rows: int, units: int, device=None,
+                row_offset: int = 0) -> torch.Tensor:
     """(rows, units) int64 tensor of the uint32 bits the kernel draws for
     ``seed``: first word of Philox4x32-10, key (seed low, seed high),
-    counter (row, unit, 0, 0)."""
+    counter (row_offset + row, unit, 0, 0)."""
     seed = torch.as_tensor(seed, dtype=torch.int64, device=device).reshape(())
     device = seed.device
-    row = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+    row = torch.arange(row_offset, row_offset + rows, dtype=torch.int64,
+                       device=device)[:, None]
     unit = torch.arange(units, dtype=torch.int64, device=device)[None, :]
     zero = torch.zeros((rows, units), dtype=torch.int64, device=device)
     return _philox4x32((row + zero, unit + zero, zero, zero),
@@ -125,17 +129,19 @@ def _check(x, w1, b1, w2, b2):
         raise TypeError(f"x dtype {x.dtype} not in {_DTYPES}")
 
 
-def _forward(x, w1, b1, w2, b2, rate: float, seed, with_h: bool):
+def _forward(x, w1, b1, w2, b2, rate: float, seed, with_h: bool,
+             row_offset: int = 0):
     """Kernel (CUDA tensor) or plain version (CPU tensor) → (logits, h);
-    h is None without ``with_h``."""
+    h is None without ``with_h``. ``row_offset``: the global row of x's
+    first row, for the dropout bits."""
     global launches, training_launches
     b, d = x.shape
     hdim, c = w1.shape[0], w2.shape[0]
     if not on_cuda(x):
         keep = None
         if rate > 0.0:
-            keep = philox_bits(seed, b, hdim, x.device) >= dropout_threshold(
-                rate)
+            keep = philox_bits(seed, b, hdim, x.device,
+                               row_offset) >= dropout_threshold(rate)
         res = fusion_head_plain(x, w1, b1, w2, b2, rate, keep, with_h=with_h)
         return res if with_h else (res, None)
     w1c = w1.to(x.dtype).contiguous()   # no-op for weights already cast
@@ -165,7 +171,7 @@ def _forward(x, w1, b1, w2, b2, rate: float, seed, with_h: bool):
         _build.ptr(seed_t) if rate > 0.0 else None,
         b, d, hdim, c, is_bf16,
         dropout_threshold(rate) if rate > 0.0 else 0,
-        1.0 / (1.0 - rate) if rate > 0.0 else 1.0,
+        1.0 / (1.0 - rate) if rate > 0.0 else 1.0, int(row_offset),
         _build.stream_ptr(x.device))
     _build.check(err, "fusion_head_forward")
     launches += 1
@@ -220,8 +226,9 @@ class FusionHead(torch.autograd.Function):
     times ``1/(1-rate)`` is the whole ReLU + dropout derivative."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, rate, seed):
-        out, h = _forward(x, w1, b1, w2, b2, rate, seed, with_h=True)
+    def forward(ctx, x, w1, b1, w2, b2, rate, seed, row_offset):
+        out, h = _forward(x, w1, b1, w2, b2, rate, seed, with_h=True,
+                          row_offset=row_offset)
         ctx.save_for_backward(x, w1, w2, h)
         ctx.scale = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
         ctx.bias_dtypes = (b1.dtype, b2.dtype)
@@ -247,15 +254,16 @@ class FusionHead(torch.autograd.Function):
                 g_b1 = g_pre.float().sum(dim=0).to(ctx.bias_dtypes[0])
             if need[0]:
                 g_x = (g_pre @ w1.to(x.dtype)).to(x.dtype)
-        return g_x, g_w1, g_b1, g_w2, g_b2, None, None
+        return g_x, g_w1, g_b1, g_w2, g_b2, None, None, None
 
 
 def fusion_head(x, w1, b1, w2, b2, *, rate: float = 0.0,
-                seed=None) -> torch.Tensor:
+                seed=None, row_offset: int = 0) -> torch.Tensor:
     """(B, D) x, (H, D) w1, (H,) b1, (C, H) w2, (C,) b2 → (B, C) f32.
-    ``rate > 0`` needs ``seed``. Differentiable: when a gradient is wanted
-    the training form runs and saves h; otherwise, at rate 0, the
-    inference operator :func:`fusion_head_op` runs."""
+    ``rate > 0`` needs ``seed``; ``row_offset`` is the global row of x's
+    first row (a data-parallel rank's). Differentiable: when a gradient
+    is wanted the training form runs and saves h; otherwise, at rate 0,
+    the inference operator :func:`fusion_head_op` runs."""
     _check(x, w1, b1, w2, b2)
     rate = float(rate)
     if not 0.0 <= rate < 1.0:
@@ -264,15 +272,18 @@ def fusion_head(x, w1, b1, w2, b2, *, rate: float = 0.0,
         raise ValueError("fusion_head: rate > 0 requires a seed")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w1, b1, w2, b2)):
-        return FusionHead.apply(x, w1, b1, w2, b2, rate, seed)
+        return FusionHead.apply(x, w1, b1, w2, b2, rate, seed, row_offset)
     if rate == 0.0:
         return fusion_head_op(x, w1, b1, w2, b2)
-    return _forward(x, w1, b1, w2, b2, rate, seed, with_h=False)[0]
+    return _forward(x, w1, b1, w2, b2, rate, seed, with_h=False,
+                    row_offset=row_offset)[0]
 
 
-def fusion_head_with_h(x, w1, b1, w2, b2, *, rate: float = 0.0, seed=None):
+def fusion_head_with_h(x, w1, b1, w2, b2, *, rate: float = 0.0, seed=None,
+                       row_offset: int = 0):
     """The training form's forward alone → (logits, h), no autograd."""
     _check(x, w1, b1, w2, b2)
     if rate > 0.0 and seed is None:
         raise ValueError("fusion_head: rate > 0 requires a seed")
-    return _forward(x, w1, b1, w2, b2, float(rate), seed, with_h=True)
+    return _forward(x, w1, b1, w2, b2, float(rate), seed, with_h=True,
+                    row_offset=row_offset)

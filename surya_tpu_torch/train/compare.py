@@ -17,15 +17,18 @@ from surya_tpu_torch.core.metrics import r2_score
 from surya_tpu_torch.models import get_model
 from surya_tpu_torch.models.backbones import trunk_channels_last
 from surya_tpu_torch.ops import resolve_device
-from surya_tpu_torch.train.loop import evaluate
+from surya_tpu_torch.train.loop import as_mesh, evaluate
 from surya_tpu_torch.train.steps import make_eval_step
 
 
 def evaluate_checkpoint(cfg: Config, state_dict, data, split: str = "valid",
-                        device=None) -> dict:
+                        device=None, mesh=None) -> dict:
     """Evaluate one model's weights (the port's state_dict) on a split of
-    ``data``, on the card unless ``device="cpu"``."""
+    ``data``, on the card unless ``device="cpu"``. On a ``mesh`` of
+    several ranks (JAX's default: every device on 'data') each rank
+    evaluates its rows and the sums are all-reduced."""
     device = resolve_device(device)
+    mesh = as_mesh(mesh, device)
     model = get_model(cfg.model, image_size=cfg.data.image_size)
     model.load_state_dict(state_dict, strict=True)
     trunk_channels_last(model)   # as in training
@@ -34,7 +37,7 @@ def evaluate_checkpoint(cfg: Config, state_dict, data, split: str = "valid",
     tf = getattr(data, "device_transform", None)
     out = evaluate(eval_step, data.eval_batches(split), device,
                    transform=(None if tf is None else
-                              (lambda b: tf(split, None, b))))
+                              (lambda b: tf(split, None, b))), mesh=mesh)
     cm = out["confusion"]
     if cm is None:  # empty split: evaluate() returns zeroed metrics
         out["confusion"] = np.zeros(
@@ -51,17 +54,19 @@ def evaluate_checkpoint(cfg: Config, state_dict, data, split: str = "valid",
 
 
 def compare_models(entries: list[dict], data, split: str = "valid",
-                   out_dir: str | None = None, device=None) -> dict:
+                   out_dir: str | None = None, device=None,
+                   mesh=None) -> dict:
     """entries: [{name, cfg, params_path}] → {name: metrics}.
 
     Writes per-model confusion PNGs and a comparison bar chart when
-    ``out_dir`` is given."""
+    ``out_dir`` is given (rank 0 of a mesh)."""
+    mesh = as_mesh(mesh, resolve_device(device))
     results = {}
     for e in entries:
         results[e["name"]] = evaluate_checkpoint(
             e["cfg"], load_checkpoint_variables(e["params_path"]), data,
-            split, device)
-    if out_dir:
+            split, device, mesh)
+    if out_dir and mesh.is_main:
         os.makedirs(out_dir, exist_ok=True)
         from surya_tpu_torch.utils.plotting import (
             plot_confusion_matrix,

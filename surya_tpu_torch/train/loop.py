@@ -4,9 +4,14 @@ best-metric checkpoints, NaN-skipped steps left out of the epoch means,
 preemption-safe resume, per-epoch JSONL records and a final test
 evaluation with confusion matrix and weighted P/R/F1.
 
-It runs on one device, the card unless ``device="cpu"``. Host batches go
-to the device once per batch (asynchronously where the source pinned
-them); ``device_transform`` and the step run there. Per-step metrics stay
+It runs on the card unless ``device="cpu"``, on one device or, under
+``torchrun``, on a mesh of ranks (``core/mesh.py``): every rank reads the
+same global batches and keeps its rows, the step is the single-device step
+on the global batch, eval sums are all-reduced, rank 0 alone writes
+checkpoints, ``loop_state.json`` and records, and a SIGTERM on any rank
+stops every rank after the same step. Host batches go to the device once
+per batch (asynchronously where the source pinned them);
+``device_transform`` and the step run there. Per-step metrics stay
 on the device and are read once per epoch (and at ``log_every``); the
 step itself reads the loss once for its NaN guard. Augmentation and
 dropout take fresh generators named by the global step count
@@ -33,6 +38,15 @@ from surya_tpu_torch.core.checkpoint import (
     write_json,
 )
 from surya_tpu_torch.core.config import Config
+from surya_tpu_torch.core.mesh import (
+    DATA_AXIS,
+    Mesh,
+    MeshSpec,
+    all_reduce_,
+    batch_rows,
+    create_mesh,
+    shard_batch,
+)
 from surya_tpu_torch.core.metrics import MetricsLogger, precision_recall_f1
 from surya_tpu_torch.core.prng import PRNG
 from surya_tpu_torch.models import get_model
@@ -125,18 +139,31 @@ class Plateau:
         return None
 
 
-def evaluate(eval_step, batches: Iterable, device, transform=None) -> dict:
+def evaluate(eval_step, batches: Iterable, device, transform=None,
+             mesh: Mesh | None = None) -> dict:
     """Run ``eval_step`` over host batches on ``device`` → loss, accuracy,
     weighted P/R/F1, confusion matrix and count. The sums stay on the
-    device and are read once, after the last batch."""
+    device and are read once, after the last batch. On a ``mesh`` each
+    rank evaluates its rows of every batch (padded to the data-axis size
+    with label −1 rows by the source) and the sums are all-reduced."""
+    sharded = mesh is not None and mesh.distributed
     totals = None
     for batch in batches:
+        if sharded:
+            batch = shard_batch(mesh, batch)
         batch = to_device(batch, device)
         if transform is not None:
             batch = transform(batch)
         out = eval_step(batch)
         totals = (out if totals is None
                   else {k: totals[k] + v for k, v in out.items()})
+    if sharded and totals is not None:
+        keys = sorted(totals)
+        flat = all_reduce_(torch.cat([totals[k].reshape(-1).double()
+                                      for k in keys]), mesh.group(DATA_AXIS))
+        totals = {k: v.view_as(totals[k]).to(totals[k].dtype)
+                  for k, v in zip(keys, flat.split(
+                      [totals[k].numel() for k in keys]))}
     if totals is None:
         # empty split: zeroed metrics with every key callers index
         return {"loss": float("nan"), "accuracy": 0.0, "precision": 0.0,
@@ -151,16 +178,23 @@ def evaluate(eval_step, batches: Iterable, device, transform=None) -> dict:
             "confusion": cm.numpy(), "count": count}
 
 
-def check_single_device(mesh) -> None:
-    """The loop runs on one device: a mesh (``MeshConfig``) of more than
-    one device is ROADMAP A11. ``data=-1`` (all devices) means the one."""
-    if mesh is None:
-        return
-    n = (1 if mesh.data == -1 else mesh.data) * mesh.model * mesh.seq
-    if n > 1:
-        raise NotImplementedError(
-            f"a mesh of {n} devices (data={mesh.data}, model={mesh.model}, "
-            f"seq={mesh.seq}) is not ported yet: ROADMAP A11 (parallelism)")
+def as_mesh(mesh, device) -> Mesh:
+    """A :class:`core.mesh.Mesh` from a mesh, a ``MeshSpec`` or a
+    ``MeshConfig`` (``cfg.mesh``); None is every rank on the data axis."""
+    if isinstance(mesh, Mesh):
+        return mesh
+    spec = MeshSpec() if mesh is None else MeshSpec(mesh.data, mesh.model,
+                                                    mesh.seq)
+    return create_mesh(spec, device)
+
+
+def any_rank(flag: bool, mesh: Mesh, device) -> bool:
+    """True on every rank when ``flag`` is True on one (a SIGTERM)."""
+    if not mesh.distributed:
+        return flag
+    t = torch.tensor([float(flag)], device=device)
+    return bool(all_reduce_(t, torch.distributed.group.WORLD,
+                            torch.distributed.ReduceOp.MAX).item())
 
 
 def _timed(iterable, box: list):
@@ -246,9 +280,13 @@ def _train_and_evaluate(cfg: Config, data, *, mesh=None,
     the best epoch's own checkpoint, and the resumed epoch's logged train
     loss covers only its post-resume steps.
     """
-    check_single_device(mesh)
     device = resolve_device(device)
-    logger = logger or MetricsLogger()
+    mesh = as_mesh(mesh, device)
+    main = mesh.is_main
+    sharded = mesh.distributed
+    accum = max(cfg.train.grad_accum, 1)
+    logger = (logger or MetricsLogger()) if main else MetricsLogger(
+        echo=False)
     prng = PRNG(cfg.train.seed)
     transform = getattr(data, "device_transform", None)
 
@@ -258,7 +296,7 @@ def _train_and_evaluate(cfg: Config, data, *, mesh=None,
     # (B,H,W,3) images or (B,T,H,W,3) clips: the width is the size
     model = get_model(cfg.model, image_size=sample[0].shape[-2],
                       seed=prng.seed_of(0, "init"))
-    state, tx = create_train_state(model, cfg, device=device)
+    state, tx = create_train_state(model, cfg, device=device, mesh=mesh)
     stopper = EarlyStopping(cfg.train.early_stop_metric,
                             cfg.train.early_stop_patience,
                             cfg.train.early_stop_min_delta)
@@ -312,12 +350,12 @@ def _train_and_evaluate(cfg: Config, data, *, mesh=None,
                             resume_skip_echoes = int(ls.get("echo_idx", 0))
             logger.log({"event": "resume", "from_epoch": latest,
                         "step_count": step_count})
-    train_step = make_train_step(model, tx, cfg)
+    train_step = make_train_step(model, tx, cfg, mesh=mesh)
     eval_step = make_eval_step(model, cfg.model.num_classes,
                                cfg.train.label_smoothing)
 
     ckpt = None
-    if checkpoints:
+    if checkpoints and main:
         # keep the best k by the checkpoint metric, so forced preemption
         # snapshots cannot evict the best epoch's weights
         mkey = ("val_loss" if "loss" in cfg.train.checkpoint_metric
@@ -339,6 +377,7 @@ def _train_and_evaluate(cfg: Config, data, *, mesh=None,
         """Snapshot the state and loop trackers. With ``batch_idx``
         (mid-epoch) a resume re-enters this epoch at that position;
         without it (the epoch finished) resume goes on at epoch + 1."""
+        snap = snapshot(state) if checkpoints else None   # every rank
         if ckpt is not None:
             # remove the previous cycle's snapshot (saves without metrics
             # are never pruned) unless it IS the best epoch
@@ -349,7 +388,7 @@ def _train_and_evaluate(cfg: Config, data, *, mesh=None,
                 if (prev.get("preempt") and pe is not None and pe != epoch
                         and pe != saver.best_epoch):
                     ckpt.delete(pe)
-            ckpt.save(epoch, snapshot(state), force=True)
+            ckpt.save(epoch, snap, force=True)
             ls = {**trackers(epoch), "preempt": True}
             if batch_idx is not None:
                 ls["batch_idx"] = batch_idx
@@ -381,6 +420,10 @@ def _train_and_evaluate(cfg: Config, data, *, mesh=None,
                 _timed(data.train_batches(epoch + 1), waited)):
             if bi < skip:
                 continue  # consumed before preemption; replay-discard
+            rows = None
+            if sharded:   # this rank's rows of the global batch
+                rows = mesh.row_shard(len(host_batch[2]), accum)
+                host_batch = tuple(rows.take(x) for x in host_batch)
             with record_function("to_device"):
                 batch = to_device(host_batch, device)
             # data echoing: each host batch drives `echo` steps, each with
@@ -389,7 +432,8 @@ def _train_and_evaluate(cfg: Config, data, *, mesh=None,
             for pos_echo in range(echo_start + 1, echo + 1):
                 step_batch = batch
                 if transform is not None:
-                    with record_function("device_transform"):
+                    with (record_function("device_transform"),
+                          batch_rows(rows)):
                         step_batch = transform(
                             "train",
                             prng.named(step_count, "augment", device), batch)
@@ -398,7 +442,8 @@ def _train_and_evaluate(cfg: Config, data, *, mesh=None,
                         state, step_batch,
                         prng.named(step_count, "dropout", device))
                 step_count += 1
-                seen += int(step_batch[2].shape[0])
+                seen += int(step_batch[2].shape[0]) * mesh.shape[DATA_AXIS]
+                preempt["flag"] = any_rank(preempt["flag"], mesh, device)
                 losses.append(m["loss"])
                 accs.append(m["accuracy"])
                 if (cfg.train.log_every > 0
@@ -438,7 +483,8 @@ def _train_and_evaluate(cfg: Config, data, *, mesh=None,
             val = evaluate(eval_step, data.eval_batches("valid"), device,
                            transform=(None if transform is None else
                                       (lambda b: transform("valid", None,
-                                                           b))))
+                                                           b))), mesh=mesh)
+        preempt["flag"] = any_rank(preempt["flag"], mesh, device)
         epoch_time = time.perf_counter() - t0
         if prof is not None:
             prof.stop()
@@ -509,7 +555,8 @@ def _train_and_evaluate(cfg: Config, data, *, mesh=None,
     if test_batches is not None:
         test = evaluate(eval_step, test_batches, device,
                         transform=(None if transform is None else
-                                   (lambda b: transform("test", None, b))))
+                                   (lambda b: transform("test", None, b))),
+                        mesh=mesh)
         logger.log({"event": "test", "test_loss": test["loss"],
                     "test_accuracy": test["accuracy"],
                     "test_precision": test["precision"],

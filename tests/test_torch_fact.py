@@ -225,11 +225,17 @@ def test_clip_length_must_be_seq_len():
 
 
 def test_parallel_variants_raise_naming_a11():
-    with pytest.raises(NotImplementedError, match="A11"):
-        get_model(ModelConfig(name="fact", moe_experts=2))
-    with pytest.raises(NotImplementedError, match="A11"):
+    """The MoE FFN is ported (tests/test_torch_moe.py); expert parallelism,
+    a ``cp_mesh`` and the pipelined forward raise, naming ROADMAP A11b."""
+    tm = FactModel(moe_experts=2, **SMALL)
+    assert [n for n, _ in tm.named_modules() if n.endswith(".moe")] == [
+        "fusion0.moe", "fusion1.moe"]
+    with pytest.raises(NotImplementedError, match="A11b"):
+        FactModel(moe_experts=2, moe_mesh=type(
+            "Mesh", (), {"shape": {"expert": 2}})(), **SMALL)
+    with pytest.raises(NotImplementedError, match="A11b"):
         FactModel(cp_mesh=object(), **SMALL)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A11b"):
         fact_apply_pipelined(None, None)
 
 

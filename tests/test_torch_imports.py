@@ -45,6 +45,13 @@ def test_port_imports_without_jax():
     assert res.stdout.strip() == "ok"
 
 
+def test_parallel_subpackage_is_covered():
+    """The import check above walks the parallel subpackage too."""
+    assert {"surya_tpu_torch.core.mesh", "surya_tpu_torch.parallel",
+            "surya_tpu_torch.parallel.sharding", "surya_tpu_torch.parallel.zero",
+            "surya_tpu_torch.parallel.moe"} <= set(_port_modules())
+
+
 def test_preset_names_match():
     assert torch_config.list_presets() == jax_config.list_presets()
     assert len(torch_config.list_presets()) == 16

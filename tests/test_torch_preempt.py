@@ -254,8 +254,11 @@ def test_data_echo_and_profile(tmp_path):
 
 
 def test_mesh_of_more_than_one_device_waits_for_a11(tmp_path):
-    tloop.check_single_device(MeshConfig())            # data=-1: one card
-    with pytest.raises(NotImplementedError, match="A11"):
+    """data=-1 is every rank: one without torchrun; a mesh of four devices
+    in one process names torchrun (tests/test_torch_parallel.py runs the
+    loop's step on two ranks)."""
+    assert tloop.as_mesh(MeshConfig(), "cpu").shape["data"] == 1
+    with pytest.raises(RuntimeError, match="torchrun"):
         tloop.train_and_evaluate(_cfg(tmp_path), _data(),
                                  mesh=MeshConfig(data=4), device="cpu")
     if not torch.cuda.is_available():   # the default device is the card

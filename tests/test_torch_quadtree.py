@@ -69,8 +69,9 @@ def test_classifier_width_at_224(mode, hidden):
 def test_registry_names_roadmap_items():
     """Every family of the JAX registry builds: the spatial ones (the
     comparative one over each backbone, and the space-to-depth stem) and
-    all six temporal ones; FACT's MoE variant raises, naming ROADMAP A11;
-    an unknown name is a ValueError."""
+    all six temporal ones; FACT's MoE variant builds its MoE FFN
+    (``moe``, ROADMAP A11b's first step); an unknown name is a
+    ValueError."""
     from surya_tpu_torch.models import TEMPORAL_MODELS, list_models
 
     assert list_models() == ["attention_hierarchical", "cnn_lstm", "fact",
@@ -79,8 +80,10 @@ def test_registry_names_roadmap_items():
                              "resnet3d_video", "standard_multimodal",
                              "standard_resnet"]
     assert TEMPORAL_MODELS < set(list_models())
-    with pytest.raises(NotImplementedError, match="A11"):
-        get_model(ModelConfig(name="fact", moe_experts=2))
+    moe = get_model(ModelConfig(name="fact", moe_experts=2, fusion_dim=48,
+                                fusion_heads=8, compute_dtype="float32"),
+                    image_size=32)
+    assert sum(n.endswith(".moe") for n, _ in moe.named_modules()) == 4
     for name in list_models():
         get_model(ModelConfig(name=name, compute_dtype="float32"),
                   image_size=64)

@@ -324,15 +324,27 @@ def test_dropout_stream_is_seeded_explicit_and_not_the_global_one():
 
 
 def test_sharded_variants_name_their_roadmap_item():
-    for train in ({"zero1": True}, {"fsdp": True}):
+    """zero1 and fsdp on one device (no torchrun) take the single-device
+    step, as JAX's sharding over a one-device mesh does; a mesh of more
+    than one device outside torchrun names it; what stays unported names
+    ROADMAP A11b (tests/test_torch_parallel.py runs the sharded steps)."""
+    from surya_tpu_torch.core.mesh import MeshSpec, create_mesh
+    from surya_tpu_torch.models.temporal.fact import fact_apply_pipelined
+
+    batch = _batch()
+    losses = []
+    for train in ({}, {"zero1": True}, {"fsdp": True}):
         cfg, _ = _cfg(**train)
         model, state, tx = _port_state(cfg)
-        with pytest.raises(NotImplementedError, match="A11"):
-            tsteps.make_train_step(model, tx, cfg)
-    cfg, _ = _cfg()
-    model, state, tx = _port_state(cfg)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tsteps.make_train_step(model, tx, cfg, mesh=object())
+        assert isinstance(tx, torch.optim.AdamW)
+        step = tsteps.make_train_step(model, tx, cfg,
+                                      mesh=create_mesh(device="cpu"))
+        losses.append(float(step(state, batch)[1]["loss"]))
+    assert losses[0] == losses[1] == losses[2]
+    with pytest.raises(RuntimeError, match="torchrun"):
+        create_mesh(MeshSpec(data=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="A11b"):
+        fact_apply_pipelined(None, None)
 
 
 def test_optimizer_settings_and_learning_rate_access():
