@@ -3909,6 +3909,395 @@ def parallel_phase(quadrant, fusion_head, card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# fact_parallel: ring attention over 'seq', the GPipe FACT over 'pipe' and
+# expert parallelism over 'expert' (parallel/{ring_attention,pipeline,moe}.py)
+# ---------------------------------------------------------------------------
+
+# the `fact` preset at its published widths (ViT-B/16 at 224 px, frozen;
+# fusion d 768, 8 heads, FFN 3072, 4 layers; T 4, so 9 tokens) and
+# FACT-MoE at scripts/fact_moe_run.py's settings (4 experts, top-2,
+# capacity 2.0)
+FACT_WIDTH = dict(num_classes=8, seq_len=4, num_features=47, embed_dim=768,
+                  num_layers=4, num_heads=8, vit_depth=12, vit_heads=12,
+                  image_size=224, freeze_backbone=True)
+FACT_MOE = dict(moe_experts=4, moe_top_k=2)
+FACT_BATCH, FACT_MICRO, FACT_TIME_BATCH = 8, 4, 32
+FACT_TOL = 1e-4      # f32 with TF32 off: logits (relative to the largest)
+                     # and gradients (relative L2)
+FACT_DROP_SEED = 7
+# name → (mesh axes, form, MoE, train-mode dropout seed): the two gloo ranks
+FACT_GLOO_RUNS = {"sp2": ({"seq": 2}, "sp", False, None),
+                  "pp2": ({"pipe": 2}, "pp", False, None),
+                  "pp2_train": ({"pipe": 2}, "pp", False, FACT_DROP_SEED),
+                  "dp2_train": ({"pipe": 1, "data": 2}, "pp", False,
+                                FACT_DROP_SEED),
+                  "ep2": ({"expert": 2}, "ep", True, FACT_DROP_SEED)}
+
+
+def launch_counts() -> dict:
+    """The six hand-kernel forms' launches in this process so far."""
+    from surya_tpu_torch.ops.cuda import fusion_head, quadrant, stem_bn
+
+    return {**read_launches(quadrant, fusion_head), **stem_bn.launches}
+
+
+def fact_build(mesh=None, form="plain", moe=False, dtype=torch.float32):
+    """FACT (or FACT-MoE) at full width from seed 0 on the card, dropout 0.1,
+    the ViT frozen as the train step freezes it: ``sp`` with ``cp_mesh``,
+    ``ep`` with ``moe_mesh``, ``pp`` holding only its stage's layers,
+    ``ring`` with every fusion attention ring attention over the mesh."""
+    from surya_tpu_torch.models.common import seeded
+    from surya_tpu_torch.models.temporal.fact import FactModel
+    from surya_tpu_torch.parallel.pipeline import keep_stage_layers
+    from surya_tpu_torch.parallel.ring_attention import make_attention_fn
+
+    kw = dict(FACT_WIDTH, dtype=dtype, dropout=0.1,
+              **(FACT_MOE if moe else {}))
+    if form == "sp":
+        kw["cp_mesh"] = mesh
+    if form == "ep":
+        kw["moe_mesh"] = mesh
+    model = seeded(lambda: FactModel(**kw), 0, "cuda")
+    model.vit_backbone.requires_grad_(False)
+    if form == "pp":
+        keep_stage_layers(model, "fusion", model.num_layers, mesh)
+    if form == "ring":   # ring attention at an axis of size 1
+        for i in range(model.num_layers):
+            getattr(model, f"fusion{i}").attn.attention_fn = \
+                make_attention_fn(mesh)
+    return model
+
+
+def fact_batch(n: int, seed: int = 5):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.normal(size=(n, 4, 224, 224, 3), scale=0.5)
+                             .astype(np.float32)).cuda(),
+            torch.from_numpy(rng.normal(size=(n, 4, 47)).astype(
+                np.float32)).cuda(),
+            torch.from_numpy(rng.integers(0, 8, n)).cuda())
+
+
+def fact_pass(model, batch, form="plain", mesh=None, train_seed=None,
+              micro=FACT_MICRO, keep=True):
+    """One forward and backward of the cross-entropy (plus the MoE's aux
+    term) → logits, loss, aux, the bytes each collective moved in the two,
+    and every gradient in the single-device form (split leaves and pipeline
+    stages gathered; averaged over 'data' where the batch splits over
+    it). ``loop``: the pipelined train mode written out on one process,
+    the seed drawn before the embed as ``fact_apply_pipelined`` draws it,
+    then ``layer(act, fold_in(seed, i, j))`` for each microbatch j and
+    global layer i."""
+    from surya_tpu_torch.core import mesh as cmesh
+    from surya_tpu_torch.core.prng import fold_in
+    from surya_tpu_torch.models.losses import cross_entropy
+    from surya_tpu_torch.models.temporal.fact import fact_apply_pipelined
+    from surya_tpu_torch.parallel.moe import MoEFFN
+    from surya_tpu_torch.parallel.pipeline import gather_stages
+    from surya_tpu_torch.parallel.zero import full_gradients
+
+    images, feats, labels = batch
+    model.train(train_seed is not None)
+    model.zero_grad(set_to_none=True)
+    gen = (None if train_seed is None
+           else torch.Generator("cuda").manual_seed(train_seed))
+    rows = None
+    before = dict(cmesh.collective_bytes)
+    if form == "pp":
+        dp = mesh is not None and mesh.shape["data"] > 1
+        logits = fact_apply_pipelined(
+            model, images, feats, mesh, num_microbatches=micro,
+            batch_spec="data" if dp else None, generator=gen)
+        if dp:
+            rows = mesh.row_shard(labels.shape[0], micro)
+            labels = rows.take(labels)
+    elif form == "loop":
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                                 device=gen.device))
+        outs = []
+        for j, act in enumerate(model.embed(images, feats, gen).chunk(micro)):
+            for i in range(model.num_layers):
+                act = getattr(model, f"fusion{i}")(
+                    act, fold_in(seed, i, j, device=act.device))
+            outs.append(act)
+        logits = model.head(torch.cat(outs))
+    else:
+        logits = model(images, feats, gen)
+    aux = sum((m.aux_loss for m in model.modules()
+               if isinstance(m, MoEFFN) and m.aux_loss is not None),
+              torch.zeros((), device=logits.device))
+    loss = cross_entropy(logits.float(), labels) + aux
+    loss.backward()
+    if not keep:
+        return None
+    moved = {k: cmesh.collective_bytes[k] - before[k] for k in before}
+    if rows is not None:
+        for p in model.parameters():
+            if p.grad is not None:
+                cmesh.all_reduce_(p.grad, mesh.group("data")).div_(
+                    rows.ranks)
+    grads = full_gradients(model)
+    if form == "pp" and mesh is not None:
+        grads = gather_stages(grads, "fusion", model.num_layers, mesh)
+    return {"logits": logits.detach().float().cpu(),
+            "rows": None if rows is None else rows.spans,
+            "loss": float(loss.detach()), "aux": float(aux.detach()),
+            "bytes": moved,
+            "grads": {k: v.float().cpu() for k, v in grads.items()}}
+
+
+def fact_errors(got, want) -> dict:
+    """Logits relative to the largest, the gradients' relative L2 over every
+    parameter and over the fusion layers', the aux term's difference."""
+    ref = (want["logits"] if got["rows"] is None else torch.cat(
+        [want["logits"][a:b] for a, b in got["rows"]]))
+    names = sorted(want["grads"])
+    if sorted(got["grads"]) != names:
+        raise AssertionError("gradient names differ: "
+                             f"{set(got['grads']) ^ set(names)}")
+    fusion = [n for n in names if n.startswith("fusion")]
+
+    def flat(run, keys):
+        return torch.cat([run["grads"][k].reshape(-1) for k in keys])
+
+    return {"logits": compare(got["logits"], ref)[1],
+            "grads": rel_l2(flat(got, names), flat(want, names)),
+            "fusion_grads": rel_l2(flat(got, fusion), flat(want, fusion)),
+            "aux": abs(got["aux"] - want["aux"])}
+
+
+def fact_failed(errs: dict) -> bool:
+    return max(errs["logits"], errs["grads"], errs["fusion_grads"],
+               errs["aux"]) > FACT_TOL
+
+
+def expert_bytes(model) -> int:
+    from surya_tpu_torch.parallel.moe import EXPERT_LEAVES
+
+    return sum(p.numel() * p.element_size() for n, p in
+               model.named_parameters()
+               if n.rpartition(".")[2] in EXPERT_LEAVES)
+
+
+def _fact_child_setup(backend: str):
+    import torch.distributed as dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if backend == "gloo":   # two ranks on the one card
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo")
+    else:
+        from surya_tpu_torch.core.mesh import maybe_initialize_distributed
+
+        maybe_initialize_distributed()
+    return dist
+
+
+def fact_gloo_child(out_dir: str) -> None:
+    """One of two ranks on the one card over gloo with CUDA tensors: each of
+    ``FACT_GLOO_RUNS`` → ``rank<r>.pt`` in ``out_dir``."""
+    from surya_tpu_torch.core import mesh as cmesh
+
+    dist = _fact_child_setup("gloo")
+    batch = fact_batch(FACT_BATCH)
+    out, before = {}, launch_counts()
+    for name, (axes, form, moe, seed) in FACT_GLOO_RUNS.items():
+        mesh = cmesh.create_mesh(axes, "cuda")
+        model = fact_build(mesh, form, moe)
+        out[name] = fact_pass(model, batch, form, mesh, seed)
+        out[name]["expert_bytes"] = expert_bytes(model)
+        del model
+        torch.cuda.empty_cache()
+        dist.barrier()
+    out["launches"] = {k: v - before[k] for k, v in launch_counts().items()}
+    torch.save(out, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
+    dist.destroy_process_group()
+
+
+def _fact_ms(fn, reps=5, warmup=2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append(1000 * (time.perf_counter() - t0))
+    return statistics.median(ms)
+
+
+def fact_nccl_child(out_file: str) -> None:
+    """NCCL ranks, one card each. At one rank: ring attention, the pipeline
+    and EP at axis size 1 against the plain model, and the batch-32 bf16
+    forward + backward (train mode, dropout 0.1) plain against pipelined at
+    M 4, in turns. At N ≥ 2 ranks: sp N, pp N at M 8, ep N and pp2×dp2
+    (N = 4) against the plain model on each rank's card, with each form's
+    forward + backward time, bytes by collective kind and peak memory."""
+    from surya_tpu_torch.core import mesh as cmesh
+
+    dist = _fact_child_setup("nccl")
+    world = dist.get_world_size()
+    batch = fact_batch(FACT_BATCH)
+    before, refs = launch_counts(), {}
+    for moe, seed in ((False, None), (True, FACT_DROP_SEED)):
+        model = fact_build(moe=moe)
+        refs[moe] = fact_pass(model, batch, train_seed=seed)
+        del model
+    if world == 1:
+        mesh = cmesh.create_mesh({"seq": 1, "pipe": 1, "expert": 1}, "cuda")
+        runs = {"ring1": ("ring", False, None), "pp1": ("pp", False, None),
+                "ep1": ("ep", True, FACT_DROP_SEED)}
+    else:
+        runs = {f"sp{world}": ({"seq": world}, "sp", False, None, 4),
+                f"pp{world}": ({"pipe": world}, "pp", False, None, 8),
+                f"ep{world}": ({"expert": world}, "ep", True,
+                               FACT_DROP_SEED, 4)}
+        if world == 4:
+            runs["pp2dp2"] = ({"pipe": 2, "data": 2}, "pp", False, None, 4)
+    out = {"backend": dist.get_backend(), "world": world, "forms": {}}
+    for name, run in runs.items():
+        if world == 1:
+            (form, moe, seed), micro = run, FACT_MICRO
+        else:
+            axes, form, moe, seed, micro = run
+            mesh = cmesh.create_mesh(axes, "cuda")
+        model = fact_build(mesh, form, moe)
+        got = fact_pass(model, batch, form, mesh, seed, micro)
+        row = {**fact_errors(got, refs[moe]), "bytes": got["bytes"]}
+        if world > 1:   # nothing may hold the model past this form
+            torch.cuda.reset_peak_memory_stats()
+            row["fwd_bwd_ms"] = _fact_ms(lambda: fact_pass(
+                model, batch, form, mesh, seed, micro, keep=False))
+            row["peak_bytes"] = torch.cuda.max_memory_allocated()
+            row["expert_bytes"] = expert_bytes(model)
+        out["forms"][name] = row
+        del model
+        torch.cuda.empty_cache()
+    if world > 1:   # the plain models' time and peak on the same cards
+        for moe, seed in ((False, None), (True, FACT_DROP_SEED)):
+            model = fact_build(moe=moe)
+            torch.cuda.reset_peak_memory_stats()
+            ms = _fact_ms(lambda: fact_pass(model, batch, train_seed=seed,
+                                            keep=False))
+            out["forms"]["plain_moe" if moe else "plain"] = {
+                "fwd_bwd_ms": ms,
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "expert_bytes": expert_bytes(model)}
+            del model
+            torch.cuda.empty_cache()
+    else:   # what the tick loop costs at one stage
+        big = fact_batch(FACT_TIME_BATCH, seed=6)
+        model = fact_build(dtype=torch.bfloat16)
+        ms = {"plain": [], "pipelined": []}
+        for _ in range(3):   # in turns
+            for name, form in (("plain", "plain"), ("pipelined", "pp")):
+                ms[name].append(_fact_ms(lambda f=form: fact_pass(
+                    model, big, f, mesh, FACT_DROP_SEED, keep=False)))
+        out["fwd_bwd_ms_batch32_bf16"] = {
+            k: statistics.median(v) for k, v in ms.items()}
+    mine = {k: v - before[k] for k, v in launch_counts().items()}
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    out["launches"] = {k: sum(r[k] for r in every) for k in mine}
+    if dist.get_rank() == 0:
+        with open(out_file, "w") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def fact_parallel_phase(card) -> dict:
+    """FACT's parallel variants on the card. (1) Two ranks on the one card
+    over gloo with CUDA tensors (``torchrun --nproc-per-node=2``): sp2
+    (``FactModel(cp_mesh=)``, 9 tokens padded to 10), pp2
+    (``fact_apply_pipelined`` at M 4, eval, and train mode with dropout 0.1)
+    and ep2 (FACT-MoE, ``moe_mesh``), each held to this process's plain
+    model at f32 with TF32 off: logits, every gradient, the aux term, and
+    half the expert bytes a rank. Train mode with dropout 0.1, at pp2 and
+    over dp2 (pipe 1, data 2), is held to the schedule written out as a
+    plain loop (``fact_pass(form="loop")``), whose logits must differ from
+    eval's. (2) One NCCL rank: the same code at axis size 1, and the tick
+    loop's cost. (3) With two or more cards, the NCCL forms over min(4,
+    count) of them. → the hand kernels' launches of the path in this
+    process and in every rank (FACT runs none)."""
+    import shutil
+    import tempfile
+
+    from surya_tpu_torch.ops.cuda import fusion_head, quadrant
+
+    t_phase = time.perf_counter()
+    reset_launches(quadrant, fusion_head)
+    before = launch_counts()
+    root = tempfile.mkdtemp(prefix="surya_fact_parallel_")
+    try:
+        gdir = os.path.join(root, "gloo")
+        os.makedirs(gdir)
+        child = start_torchrun(2, [os.path.abspath(__file__), "--fact-gloo",
+                                   gdir])
+        batch = fact_batch(FACT_BATCH)   # the references, meanwhile
+        refs = {}
+        for name, (form, moe, seed) in {
+                "plain": ("plain", False, None),
+                "written_out_train": ("loop", False, FACT_DROP_SEED),
+                "plain_moe_train": ("plain", True, FACT_DROP_SEED)}.items():
+            model = fact_build(moe=moe)
+            refs[name] = fact_pass(model, batch, form, None, seed)
+            whole = expert_bytes(model)
+            del model
+            torch.cuda.empty_cache()
+        finish({"gloo": child}, timeout=400)
+        ranks = [torch.load(os.path.join(gdir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+        gloo = {}
+        for name in FACT_GLOO_RUNS:
+            want = refs[{"pp2_train": "written_out_train",
+                         "dp2_train": "written_out_train",
+                         "ep2": "plain_moe_train"}.get(name, "plain")]
+            for r, got in enumerate(ranks):
+                errs = fact_errors(got[name], want)
+                errs["bytes"] = got[name]["bytes"]
+                if name == "ep2":
+                    errs["expert_bytes"] = got[name]["expert_bytes"]
+                    errs["expert_bytes_unsharded"] = whole
+                    if 2 * got[name]["expert_bytes"] != whole:
+                        raise AssertionError(f"ep2 rank {r} holds "
+                                             f"{errs['expert_bytes']} of "
+                                             f"{whole} expert bytes")
+                gloo[f"{name}_rank{r}"] = errs
+                if fact_failed(errs):
+                    raise AssertionError(f"{name} rank {r} vs one process: "
+                                         f"{errs}")
+        dropped = compare(refs["written_out_train"]["logits"],
+                          refs["plain"]["logits"])[1]
+        if dropped <= FACT_TOL:
+            raise AssertionError(f"train-mode logits within {dropped} of "
+                                 "eval's: dropout did not act")
+        runs = {}
+        for n in sorted({1, min(4, torch.cuda.device_count())}):
+            nfile = os.path.join(root, f"nccl{n}.json")
+            finish({f"nccl{n}": start_torchrun(n, [
+                os.path.abspath(__file__), "--fact-nccl", nfile])},
+                timeout=400)
+            with open(nfile) as f:
+                runs[n] = json.load(f)
+            for name, row in runs[n]["forms"].items():
+                if "logits" in row and fact_failed(row):
+                    raise AssertionError(f"NCCL {name}: {row}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    children = [r["launches"] for r in ranks] + [
+        r["launches"] for r in runs.values()]
+    launches = {k: v - before[k] + sum(c[k] for c in children)
+                for k, v in launch_counts().items()}
+    emit({"phase": "fact_parallel", "gloo_two_ranks": gloo,
+          "train_vs_eval_logits": dropped,
+          "nccl": {str(k): v for k, v in runs.items()},
+          "hand_kernel_launches": launches,
+          "seconds": time.perf_counter() - t_phase, **card})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3971,6 +4360,9 @@ def main() -> int:
     if min(parallel_launches.values()) < 1:
         raise AssertionError(f"a kernel form was never launched on the "
                              f"parallel path: {parallel_launches}")
+    torch.cuda.empty_cache()
+    fact_parallel_phase(card)   # FACT runs no hand kernel: its launches
+                                # are reported, none is expected
 
     # name → (source, replaces, launches on its path, max |kernel - plain|
     # at the shape that path gives it, bf16)
@@ -4059,5 +4451,11 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--parallel-nccl"]:
         parallel_nccl_child(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--fact-gloo"]:   # the fact_parallel phase's ranks
+        fact_gloo_child(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--fact-nccl"]:
+        fact_nccl_child(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

@@ -46,3 +46,14 @@ def _mix64(x: int) -> int:
     x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
     return x ^ (x >> 31)
+
+
+def fold_in(seed: int, *data: int, device="cpu") -> torch.Generator:
+    """A generator on ``device`` whose seed is a stateless function of
+    ``seed`` and the integers ``data`` (JAX's ``fold_in`` chain)."""
+    h = int(seed) & _MASK64
+    for d in data:
+        h = _mix64(h ^ _mix64(int(d) & _MASK64))
+    g = torch.Generator(device=device)
+    g.manual_seed(h)
+    return g

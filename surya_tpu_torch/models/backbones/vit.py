@@ -44,11 +44,15 @@ from surya_tpu_torch.models.norms import LayerNorm
 class MultiHeadDotProductAttention(nn.Module):
     """flax ``nn.MultiHeadDotProductAttention`` as the models call it
     (self-attention, qkv and out widths = d, biases, broadcast dropout on
-    the attention weights at ``dropout``)."""
+    the attention weights at ``dropout``). ``attention_fn`` (flax's
+    ``attention_fn=``) replaces the attention of the projected (B, L, h,
+    d/h) q, k, v: ``attention_fn(q, k, v, dropout_rate=, generator=,
+    training=)`` → (B, L, h, d/h); no parameter or name changes."""
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, attention_fn=None):
         super().__init__()
+        self.attention_fn = attention_fn
         if dim % num_heads:
             raise ValueError(f"width {dim} is not divisible by "
                              f"{num_heads} heads")
@@ -59,23 +63,24 @@ class MultiHeadDotProductAttention(nn.Module):
         self.num_heads, self.dropout, self.dtype = num_heads, dropout, dtype
         # flax divides by jnp.sqrt(depth).astype(dtype)
         self.scale = float(torch.tensor(math.sqrt(dim // num_heads),
-                                        dtype=dtype))
+                                        dtype=dtype, device="cpu"))
 
     def forward(self, x, generator=None):
         """(B, L, d) → (B, L, d) in the compute dtype."""
         b, n, d = x.shape
-        h = self.num_heads
-
-        def heads(layer):   # (B, L, d) → (B, h, L, d/h)
-            return dense(x, layer, self.dtype).view(b, n, h, -1).transpose(
-                1, 2)
-
-        q, k, v = heads(self.query), heads(self.key), heads(self.value)
-        w = torch.softmax((q / self.scale) @ k.transpose(-2, -1), dim=-1)
-        w = flax_dropout(w, self.dropout, generator, self.training,
-                         shape=(n, n))
-        o = (w @ v).transpose(1, 2).reshape(b, n, d)
-        return dense(o, self.out, self.dtype)
+        q, k, v = (dense(x, layer, self.dtype).view(b, n, self.num_heads, -1)
+                   for layer in (self.query, self.key, self.value))
+        if self.attention_fn is not None:
+            o = self.attention_fn(q, k, v, dropout_rate=self.dropout,
+                                  generator=generator,
+                                  training=self.training)
+        else:   # (B, h, L, d/h)
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+            w = torch.softmax((q / self.scale) @ k.transpose(-2, -1), dim=-1)
+            w = flax_dropout(w, self.dropout, generator, self.training,
+                             shape=(n, n))
+            o = (w @ v).transpose(1, 2)
+        return dense(o.reshape(b, n, d), self.out, self.dtype)
 
 
 class MlpBlock(nn.Module):

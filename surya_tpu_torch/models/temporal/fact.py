@@ -25,9 +25,12 @@ JAX's ``stop_frozen_gradients``.
 
 ``moe_experts > 0`` replaces every fusion layer's FFN by the MoE FFN of
 ``parallel/moe.py`` (its auxiliary loss reaches the train step's
-objective). Expert parallelism over a ``moe_mesh`` 'expert' axis, ring
-attention over a ``cp_mesh`` and the pipelined stack
-(``fact_apply_pipelined``) raise, naming ROADMAP A11b.
+objective); with a ``moe_mesh`` that has an 'expert' axis each rank holds
+and runs its share of the experts (expert parallelism). A ``cp_mesh``
+whose 'seq' axis is larger than 1 runs the fusion attention as ring
+attention over it (``parallel/ring_attention.py``), the parameters
+unchanged. :func:`fact_apply_pipelined` runs the fusion stack as a GPipe
+pipeline over a 'pipe' axis (``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +39,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from surya_tpu_torch.core.mesh import (
+    DATA_AXIS,
+    SEQ_AXIS,
+    batch_rows,
+    single_device_mesh,
+)
+from surya_tpu_torch.core.prng import fold_in
 from surya_tpu_torch.models.backbones.vit import (
     MultiHeadDotProductAttention,
     ViT,
@@ -44,25 +54,26 @@ from surya_tpu_torch.models.common import dense, flax_dropout, reset_model
 from surya_tpu_torch.models.norms import LayerNorm
 from surya_tpu_torch.parallel.moe import MoEFFN
 
-_A11B = "is not ported yet: ROADMAP A11b (FACT's parallel variants)"
-
 
 class PostLNEncoderLayer(nn.Module):
     """torch ``nn.TransformerEncoderLayer``'s structure (post-LN, ReLU FFN)
     with flax's numerics: ln1(x + drop(attn(x))), then
     ln2(x + drop(ff2(drop(relu(ff1(x)))))); with ``moe_experts`` the FFN
-    is the MoE FFN ``moe`` (JAX's name)."""
+    is the MoE FFN ``moe`` (JAX's name), expert-parallel over
+    ``moe_mesh``'s 'expert' axis; ``attention_fn`` replaces the attention
+    (ring attention), the parameters unchanged."""
 
     def __init__(self, dim: int, num_heads: int = 8, ff_dim: int = 3072,
                  dropout: float = 0.1, dtype=torch.bfloat16,
-                 moe_experts: int = 0, moe_top_k: int = 2):
+                 moe_experts: int = 0, moe_top_k: int = 2,
+                 attention_fn=None, moe_mesh=None):
         super().__init__()
         self.attn = MultiHeadDotProductAttention(dim, num_heads, dropout,
-                                                 dtype)
+                                                 dtype, attention_fn)
         self.ln1 = LayerNorm(dim, dtype)
         if moe_experts:
             self.moe = MoEFFN(dim, moe_experts, ff_dim, moe_top_k,
-                              dropout=dropout, dtype=dtype)
+                              dropout=dropout, dtype=dtype, mesh=moe_mesh)
         else:
             self.ff1 = nn.Linear(dim, ff_dim)
             self.ff2 = nn.Linear(ff_dim, dim)
@@ -92,14 +103,17 @@ class FactModel(nn.Module):
                  cp_mesh=None, moe_experts: int = 0, moe_top_k: int = 2,
                  moe_mesh=None):
         super().__init__()
-        if cp_mesh is not None:
-            raise NotImplementedError(f"ring attention over a cp_mesh {_A11B}")
-        if moe_mesh is not None and moe_mesh.shape.get("expert", 1) > 1:
-            raise NotImplementedError(
-                f"expert parallelism (an 'expert' axis > 1) {_A11B}")
         d = embed_dim
+        attention_fn = None
+        if cp_mesh is not None and cp_mesh.shape.get(SEQ_AXIS, 1) > 1:
+            from surya_tpu_torch.parallel.ring_attention import (
+                make_attention_fn,
+            )
+
+            attention_fn = make_attention_fn(cp_mesh)
         self.seq_len, self.num_layers, self.dtype = seq_len, num_layers, dtype
-        self.freeze_backbone = freeze_backbone
+        self.freeze_backbone, self.dropout = freeze_backbone, dropout
+        self.ring_attention = attention_fn is not None
         self.vit_backbone = ViT(image_size, embed_dim=d, depth=vit_depth,
                                 num_heads=vit_heads, mlp_dim=4 * d,
                                 dtype=dtype)
@@ -110,7 +124,8 @@ class FactModel(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, 2 * seq_len + 1, d))
         for i in range(num_layers):
             self.add_module(f"fusion{i}", PostLNEncoderLayer(
-                d, num_heads, 4 * d, dropout, dtype, moe_experts, moe_top_k))
+                d, num_heads, 4 * d, dropout, dtype, moe_experts, moe_top_k,
+                attention_fn, moe_mesh))
         self.head_ln = LayerNorm(d, dtype)
         self.head_fc = nn.Linear(d, num_classes)
 
@@ -172,6 +187,82 @@ class FactModel(nn.Module):
         return self.head(self.encoder_stack(full, generator))
 
 
-def fact_apply_pipelined(*args, **kwargs):
-    """JAX's GPipe-scheduled FACT forward (``parallel/pipeline.py``)."""
-    raise NotImplementedError(f"fact_apply_pipelined {_A11B}")
+def fact_apply_pipelined(model: FactModel, image_sequence, numerical_sequence,
+                         mesh, *,
+                         num_microbatches: int | None = None,
+                         batch_spec: str | None = None,
+                         generator: torch.Generator | None = None):
+    """FACT's forward with the fusion stack pipeline-parallel over
+    the 'pipe' axis of ``mesh`` (``parallel/pipeline.py``'s GPipe schedule;
+    one stage without a mesh) → (B, C) f32 logits, replicated over 'pipe'.
+    ``embed`` and ``head`` run as the plain model's; stage s applies its
+    L/S layers ``fusion{i}`` (the model may hold only those:
+    ``pipeline.keep_stage_layers``).
+
+    ``batch_spec="data"`` splits the global batch over the mesh's 'data'
+    axis (PP×DP): each rank takes its rows of each microbatch
+    (``Mesh.row_shard(B, M)``) and returns their logits. In train mode
+    (``model.train()``) each (global layer, microbatch) pair draws its
+    dropout from a generator of its own, folded from one draw of
+    ``generator`` (each microbatch's masks the global microbatch's, as the
+    data-parallel step draws them), so a pipelined run equals a sequential
+    run on the same draws (``mesh`` of one stage), not the plain model's.
+    Eval-mode logits are the plain model's. Ring attention (a ``cp_mesh``)
+    composes with DP and TP, not with PP, and the MoE FFN not at all."""
+    from surya_tpu_torch.parallel.pipeline import (
+        PIPE,
+        pipeline_apply,
+        stage_range,
+    )
+    from surya_tpu_torch.parallel.ring_attention import dropout_seed
+
+    if any(isinstance(m, MoEFFN) for m in model.modules()):
+        raise NotImplementedError(
+            "fact_apply_pipelined does not support MoE layers (PP x EP "
+            "composition is out of scope): the pipelined stage layer is the "
+            "dense PostLNEncoderLayer and the router's auxiliary loss cannot "
+            "cross the schedule. Use the plain forward with an 'expert' mesh "
+            "axis (parallel/moe.py) instead.")
+    if model.ring_attention:
+        raise ValueError("ring attention (cp_mesh) composes with DP and TP, "
+                         "not with the pipelined FACT")
+    if mesh is None:
+        mesh = single_device_mesh(image_sequence.device.type, (PIPE,))
+    train = model.training
+    if train and model.dropout > 0 and generator is None:
+        raise ValueError("fact_apply_pipelined in train mode needs a "
+                         "dropout generator")
+    b = image_sequence.shape[0]
+    m = num_microbatches or mesh.shape.get(PIPE, 1)
+    if b % m:
+        raise ValueError(f"batch {b} not divisible by microbatches {m}")
+    layers = stage_range(model.num_layers, mesh)
+    rows = micro_rows = None
+    if batch_spec is not None:
+        if batch_spec != DATA_AXIS:
+            raise ValueError(f"batch_spec {batch_spec!r}: the batch splits "
+                             f"over {DATA_AXIS!r} only")
+        if mesh.shape[DATA_AXIS] > 1:
+            rows = mesh.row_shard(b, m)
+            micro_rows = mesh.row_shard(b // m)
+            image_sequence = rows.take(image_sequence)
+            numerical_sequence = rows.take(numerical_sequence)
+    # the one draw reads a number back from the card: before the embed, so
+    # the host queues the ticks while the card runs the ViT
+    seed = dropout_seed(generator) if train and model.dropout > 0 else None
+    with batch_rows(rows):
+        emb = model.embed(image_sequence, numerical_sequence, generator)
+    stage = [getattr(model, f"fusion{i}") for i in layers]
+
+    def stage_fn(act, j):
+        with batch_rows(micro_rows):
+            for i, layer in zip(layers, stage):
+                gen = (None if seed is None
+                       else fold_in(seed, i, j, device=act.device))
+                act = layer(act, gen)
+        return act
+
+    full = pipeline_apply(stage_fn, [p for layer in stage
+                                     for p in layer.parameters()],
+                          emb, mesh, num_microbatches=m)
+    return model.head(full)

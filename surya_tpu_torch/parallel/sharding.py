@@ -28,7 +28,7 @@ import torch
 import torch.nn as nn
 from torch.nn.utils import parametrize
 
-from surya_tpu_torch.core.mesh import MODEL_AXIS, all_gather_stack
+from surya_tpu_torch.core.mesh import MODEL_AXIS, gather
 from surya_tpu_torch.models.from_jax import output_axis
 
 MIN_ELEMENTS = 1 << 16
@@ -62,29 +62,10 @@ def canonical_name(name: str) -> str:
         ".original")
 
 
-class _Gather(torch.autograd.Function):
-    """The full tensor from every model rank's slice along ``axis``; the
-    gradient of the slice is its part of the full gradient."""
-
-    @staticmethod
-    def forward(ctx, shard, axis, group):
-        ctx.axis, ctx.index = axis, torch.distributed.get_rank(group)
-        ctx.size = shard.shape[axis]
-        full = torch.cat(all_gather_stack(shard, group).unbind(0), axis)
-        if shard.dim() == 4 and shard.is_contiguous(
-                memory_format=torch.channels_last) and not \
-                shard.is_contiguous():
-            full = full.contiguous(memory_format=torch.channels_last)
-        return full
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.narrow(ctx.axis, ctx.index * ctx.size, ctx.size), None, None
-
-
 class ModelShard(nn.Module):
     """The parametrization of one sharded leaf: ``right_inverse`` keeps
-    this rank's slice, ``forward`` gathers the full tensor."""
+    this rank's slice, ``forward`` gathers the full tensor (the gradient of
+    the slice is its part of the full gradient: ``core.mesh.gather``)."""
 
     def __init__(self, axis: int, group):
         super().__init__()
@@ -93,7 +74,12 @@ class ModelShard(nn.Module):
         self.parts = torch.distributed.get_world_size(group)
 
     def forward(self, shard):
-        return _Gather.apply(shard, self.axis, self.group)
+        full = gather(shard, self.group, self.axis)
+        if shard.dim() == 4 and shard.is_contiguous(
+                memory_format=torch.channels_last) and not \
+                shard.is_contiguous():
+            full = full.contiguous(memory_format=torch.channels_last)
+        return full
 
     def right_inverse(self, full):
         size = full.shape[self.axis] // self.parts

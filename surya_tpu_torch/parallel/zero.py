@@ -27,11 +27,11 @@ state. The gathers are ``all_reduce``/``broadcast`` (``core/mesh.py``).
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from surya_tpu_torch.core.mesh import (
     DATA_AXIS,
-    MODEL_AXIS,
     all_reduce_,
     broadcast_,
 )
@@ -104,27 +104,28 @@ def _full_data(t: torch.Tensor) -> torch.Tensor:
     return all_reduce_(full, group)
 
 
-def _full_model(t: torch.Tensor, axis: int | None, mesh) -> torch.Tensor:
-    """A tensor-parallel slice → the full tensor along ``axis``."""
-    if axis is None:
+def _full_model(t: torch.Tensor, where) -> torch.Tensor:
+    """A slice split over a group (``where`` = (dim, group): a TP slice over
+    'model', an expert-parallel leaf over 'expert') → the full tensor."""
+    if where is None:
         return t
-    group = mesh.group(MODEL_AXIS)
-    parts = mesh.shape[MODEL_AXIS]
+    axis, group = where
+    parts, index = dist.get_world_size(group), dist.get_rank(group)
     size = t.shape[axis]
     shape = list(t.shape)
     shape[axis] = size * parts
     full = t.new_zeros(shape)
-    full.narrow(axis, mesh.coords[MODEL_AXIS] * size, size).copy_(t)
+    full.narrow(axis, index * size, size).copy_(t)
     return all_reduce_(full, group)
 
 
-def _local_of(full: torch.Tensor, like: torch.Tensor, axis: int | None,
-              mesh) -> torch.Tensor:
-    """This rank's part of a full tensor shaped like ``like`` (a TP slice,
-    then FSDP's dim-0 chunk)."""
-    if axis is not None:
-        size = full.shape[axis] // mesh.shape[MODEL_AXIS]
-        full = full.narrow(axis, mesh.coords[MODEL_AXIS] * size, size)
+def _local_of(full: torch.Tensor, like: torch.Tensor, where) -> torch.Tensor:
+    """This rank's part of a full tensor shaped like ``like`` (a TP or
+    expert slice, then FSDP's dim-0 chunk)."""
+    if where is not None:
+        axis, group = where
+        size = full.shape[axis] // dist.get_world_size(group)
+        full = full.narrow(axis, dist.get_rank(group) * size, size)
     if _is_dtensor(like):
         start, stop = _dim0_span(like.shape[0], like.device_mesh.size(),
                                  like.device_mesh.get_local_rank())
@@ -138,14 +139,18 @@ def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
         local.copy_(src.to(local.device, local.dtype))
 
 
-def _tp_axes(model: nn.Module) -> dict[str, int]:
-    """Canonical name → axis of every tensor-parallel slice in ``model``."""
+def _sharded_axes(model: nn.Module) -> dict[str, tuple]:
+    """Canonical name → (dim, group) of every leaf split over a group: the
+    tensor-parallel slices and the expert-parallel leaves."""
     out = {}
     for name, module in model.named_modules():
+        prefix = f"{name}." if name else ""
         for leaf, plist in getattr(module, "parametrizations", {}).items():
-            axis = getattr(plist[0], "axis", None)
-            if axis is not None:
-                out[f"{name}.{leaf}" if name else leaf] = axis
+            if getattr(plist[0], "axis", None) is not None:
+                out[prefix + leaf] = (plist[0].axis, plist[0].group)
+        if hasattr(module, "sharded_leaves"):
+            out.update({prefix + leaf: where for leaf, where in
+                        module.sharded_leaves().items()})
     return out
 
 
@@ -203,7 +208,7 @@ def _owner_state(optimizer, p):
 def full_optimizer_state(state) -> dict:
     """The sharded optimizer's state as the single-device ``AdamW.
     state_dict()`` (moments gathered; ZeRO's broadcast from each owner)."""
-    mesh, tp = state.mesh, _tp_axes(state.model)
+    mesh, where = state.mesh, _sharded_axes(state.model)
     params = [p for g in state.optimizer.param_groups for p in g["params"]]
     out = {}
     for i, (name, p) in enumerate(zip(state.param_names, params)):
@@ -223,7 +228,7 @@ def full_optimizer_state(state) -> dict:
         if st is None:
             continue
         out[i] = {k: (v.detach().clone() if k == "step" else
-                      _full_model(_full_data(v), tp.get(name), mesh))
+                      _full_model(_full_data(v), where.get(name)))
                   for k, v in st.items()}
     return {"state": out,
             "param_groups": [{**_hyper(state.optimizer),
@@ -231,19 +236,29 @@ def full_optimizer_state(state) -> dict:
 
 
 def full_model_state(model: nn.Module, mesh) -> dict:
-    """The unsharded model's ``state_dict``: TP slices and FSDP shards
-    gathered, parametrized names back to the plain ones."""
-    tp = _tp_axes(model)
+    """The unsharded model's ``state_dict``: TP slices, expert-parallel
+    leaves and FSDP shards gathered, parametrized names back to the plain
+    ones."""
+    where = _sharded_axes(model)
     out = {}
     for name, t in model.state_dict().items():
         cname = canonical_name(name)
-        out[cname] = _full_model(_full_data(t), tp.get(cname), mesh)
+        out[cname] = _full_model(_full_data(t), where.get(cname))
     return out
+
+
+def full_gradients(model: nn.Module) -> dict:
+    """Canonical name → the full gradient of every parameter that has one
+    (TP slices and expert-parallel leaves gathered)."""
+    where = _sharded_axes(model)
+    return {canonical_name(n): _full_model(p.grad, where.get(
+        canonical_name(n))) for n, p in model.named_parameters()
+        if p.grad is not None}
 
 
 def load_full_model_state(model: nn.Module, full: dict, mesh) -> None:
     """Copy a single-device ``state_dict`` into a sharded ``model``."""
-    tp = _tp_axes(model)
+    where = _sharded_axes(model)
     own = model.state_dict()
     names = {canonical_name(n) for n in own}
     if names != set(full):
@@ -252,13 +267,13 @@ def load_full_model_state(model: nn.Module, full: dict, mesh) -> None:
                        f"{sorted(set(full) - names)[:5]}")
     for name, t in own.items():
         cname = canonical_name(name)
-        _copy_into(t, _local_of(full[cname], t, tp.get(cname), mesh))
+        _copy_into(t, _local_of(full[cname], t, where.get(cname)))
 
 
 def load_full_optimizer_state(state, full: dict) -> None:
     """Put a single-device ``AdamW.state_dict()`` into the sharded
     optimizer (each rank its part; ZeRO: the owners)."""
-    mesh, tp = state.mesh, _tp_axes(state.model)
+    mesh, where = state.mesh, _sharded_axes(state.model)
     opt = state.optimizer
     params = [p for g in opt.param_groups for p in g["params"]]
     for group in opt.param_groups:
@@ -277,7 +292,7 @@ def load_full_optimizer_state(state, full: dict) -> None:
             if k == "step":
                 local[k] = v.clone()
                 continue
-            part = _local_of(v, p, tp.get(name), mesh).to(
+            part = _local_of(v, p, where.get(name)).to(
                 p.device, p.dtype if not _is_dtensor(p) else
                 p.to_local().dtype)
             if _is_dtensor(p):
@@ -309,18 +324,22 @@ def load_full_snapshot(state, snap: dict) -> None:
     state.generator.set_state(snap["generator"])
 
 
-def tp_param_ids(model: nn.Module) -> set[int]:
-    """``id`` of every tensor-parallel slice among ``model``'s parameters."""
-    tp = _tp_axes(model)
-    return {id(p) for n, p in model.named_parameters()
-            if canonical_name(n) in tp}
+def sharded_param_groups(model: nn.Module) -> dict[int, object]:
+    """``id`` → group of every parameter split over a group (a TP slice over
+    'model', an expert-parallel leaf over 'expert')."""
+    where = _sharded_axes(model)
+    return {id(p): where[canonical_name(n)][1]
+            for n, p in model.named_parameters()
+            if canonical_name(n) in where}
 
 
-def global_grad_sq_norm(params, tp_ids: set[int], mesh) -> torch.Tensor:
+def global_grad_sq_norm(params, sharded: dict[int, object],
+                        mesh) -> torch.Tensor:
     """The squared global norm of the parameters' gradients on a sharded
     state: each rank's sums of squares, FSDP shards added over 'data' and
-    TP slices over 'model' (replicated leaves counted once)."""
-    parts = {True: [], False: []}
+    each split leaf's over its group (``sharded``: ``id`` → group, from
+    :func:`sharded_param_groups`); replicated leaves counted once."""
+    parts = {}
     fsdp = False
     for p in params:
         g = p.grad
@@ -328,17 +347,16 @@ def global_grad_sq_norm(params, tp_ids: set[int], mesh) -> torch.Tensor:
             continue
         if _is_dtensor(g):
             fsdp, g = True, g.to_local()
-        parts[id(p) in tp_ids].append(g)
+        parts.setdefault(sharded.get(id(p)), []).append(g)
     dev = params[0].device if not _is_dtensor(params[0]) else \
         params[0].to_local().device
-
-    def sq(gs):
-        if not gs:
-            return torch.zeros((), device=dev)
-        return torch.stack(torch._foreach_norm(gs)).float().pow(2).sum()
-
-    sums = torch.stack([sq(parts[False]), sq(parts[True])])
+    groups = [None, *(k for k in parts if k is not None)]
+    sums = torch.stack([
+        torch.stack(torch._foreach_norm(parts[k])).float().pow(2).sum()
+        if parts.get(k) else torch.zeros((), device=dev) for k in groups])
     if fsdp:
         all_reduce_(sums, mesh.group(DATA_AXIS))
-    tp_sum = all_reduce_(sums[1:].clone(), mesh.group(MODEL_AXIS))
-    return sums[0] + tp_sum[0]
+    total = sums[0]
+    for i, group in enumerate(groups[1:], 1):
+        total = total + all_reduce_(sums[i:i + 1].clone(), group)[0]
+    return total

@@ -254,10 +254,10 @@ def make_train_step(model: torch.nn.Module, tx, cfg: Config, mesh=None,
     if sharded:
         from surya_tpu_torch.parallel.zero import (
             global_grad_sq_norm,
-            tp_param_ids,
+            sharded_param_groups,
         )
 
-        tp_ids = tp_param_ids(model)
+        split_groups = sharded_param_groups(model)
         data_group, fsdp = mesh.group(DATA_AXIS), cfg.train.fsdp
     parts = mesh.shape[DATA_AXIS] if sharded else 1
 
@@ -279,7 +279,7 @@ def make_train_step(model: torch.nn.Module, tx, cfg: Config, mesh=None,
         if not sharded:
             clip_by_global_norm_(grads, clip)
             return
-        norm = global_grad_sq_norm(params, tp_ids, mesh).sqrt()
+        norm = global_grad_sq_norm(params, split_groups, mesh).sqrt()
         local = [g.to_local() if hasattr(g, "to_local") else g for g in grads]
         torch._foreach_mul_(local, clip / torch.clamp(norm, min=clip))
 

@@ -8,9 +8,10 @@ against JAX's (the ViT frozen, as the preset freezes it). Small widths:
 
 Also the semantics: the attention dropout mask is one (q, k) mask shared
 over batch and heads, drawn only from the explicit generator; a clip whose
-T is not ``seq_len`` raises in both packages; the MoE FFN, a ``cp_mesh``
-and the pipelined forward raise naming ROADMAP A11; the frozen ViT runs in
-eval mode and the train step leaves it untouched, with no gradient.
+T is not ``seq_len`` raises in both packages; the frozen ViT runs in eval
+mode and the train step leaves it untouched, with no gradient; the
+parallel variants are wired as JAX wires them (FACT over a ``cp_mesh`` of
+'seq' 2 runs in ``tests/test_torch_ring_attention.py``).
 """
 
 import dataclasses
@@ -225,18 +226,32 @@ def test_clip_length_must_be_seq_len():
 
 
 def test_parallel_variants_raise_naming_a11():
-    """The MoE FFN is ported (tests/test_torch_moe.py); expert parallelism,
-    a ``cp_mesh`` and the pipelined forward raise, naming ROADMAP A11b."""
+    """The parallel variants are wired as JAX wires them: the MoE FFN sits
+    at ``fusion{i}.moe``; a ``cp_mesh`` whose 'seq' axis is 1 keeps the
+    plain attention (JAX: ring attention only above 1) and one of 2 swaps
+    every fusion attention for ring attention with the parameters
+    unchanged; the pipelined forward of one stage is the plain forward
+    (``tests/test_torch_pipeline.py`` runs the stages)."""
+    from surya_tpu_torch.core.mesh import Mesh, single_device_mesh
+
     tm = FactModel(moe_experts=2, **SMALL)
     assert [n for n, _ in tm.named_modules() if n.endswith(".moe")] == [
         "fusion0.moe", "fusion1.moe"]
-    with pytest.raises(NotImplementedError, match="A11b"):
-        FactModel(moe_experts=2, moe_mesh=type(
-            "Mesh", (), {"shape": {"expert": 2}})(), **SMALL)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        FactModel(cp_mesh=object(), **SMALL)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        fact_apply_pipelined(None, None)
+    one = FactModel(cp_mesh=single_device_mesh("cpu"), **SMALL)
+    assert one.fusion0.attn.attention_fn is None and not one.ring_attention
+    two = FactModel(cp_mesh=Mesh({"seq": 2}, {"seq": 0}, {"seq": None}),
+                    **SMALL)
+    assert two.ring_attention and all(
+        getattr(two, f"fusion{i}").attn.attention_fn is not None
+        for i in range(2))
+    assert two.vit_backbone.block0.attn.attention_fn is None
+    assert set(two.state_dict()) == set(one.state_dict())
+    model = FactModel(dtype=torch.float32, image_size=32, **SMALL).eval()
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    x, f = torch.rand(2, 4, 32, 32, 3), torch.randn(2, 4, 47)
+    with torch.no_grad():
+        torch.testing.assert_close(fact_apply_pipelined(model, x, f, None),
+                                   model(x, f), rtol=0, atol=1e-6)
 
 
 def test_one_fact_train_step_matches_jax():

@@ -1,6 +1,6 @@
 """The port's MoE FFN (``surya_tpu_torch/parallel/moe.py``) against
 ``surya_tpu/parallel/moe.py`` at f32 on the CPU, unsharded (JAX's
-``mesh=None``):
+``mesh=None``) and expert-parallel:
 
 - ``top_k_dispatch`` bit-equal to JAX's (dispatch, combine; the aux term,
   a product of two f32 means, within 1e-6 relative), with capacities
@@ -12,7 +12,11 @@
   forward within 1e-5;
 - the aux term reaches the port's train step: the step's loss is the
   cross-entropy plus every layer's aux term, and the router's first Adam
-  moment is the gradient of that sum.
+  moment is the gradient of that sum;
+- expert parallelism on two gloo ranks (one spawn): FACT-MoE's logits, aux
+  term and gradients against JAX's unsharded model, half the expert
+  bytes a rank, the gathered checkpoint, a clipped train step equal to
+  one process's, and JAX's ``num_experts % ep`` error.
 """
 
 import numpy as np
@@ -110,9 +114,13 @@ def test_fact_moe_forward_matches_jax():
         got = tm.eval()(torch.from_numpy(images), torch.from_numpy(feats))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        FactModel(moe_mesh=type("M", (), {"shape": {"expert": 2}})(),
-                  **SMALL)
+    # a mesh of one device keeps every expert (the unsharded path)
+    from surya_tpu_torch.core.mesh import single_device_mesh
+
+    one = FactModel(dtype=torch.float32, image_size=32,
+                    moe_mesh=single_device_mesh("cpu", ("expert",)), **SMALL)
+    assert one.fusion0.moe.w1.shape[0] == 4
+    assert one.fusion0.moe.sharded_leaves() == {}
 
 
 def test_aux_loss_reaches_the_train_step():
@@ -145,3 +153,86 @@ def test_aux_loss_reaches_the_train_step():
         torch.testing.assert_close(tx.state[router]["exp_avg"], 0.1 * g,
                                    rtol=1e-5, atol=1e-9)
     assert float(aux) > 0
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism: FACT-MoE (JAX's dryrun model, 2 layers, 4 experts) on
+# two gloo ranks, each holding two experts, against JAX's unsharded model
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ep(tmp_path_factory):
+    import torch_dist_worker as W
+    from torch_fact_reference import FACT_MOE, jax_fact
+
+    tmp = tmp_path_factory.mktemp("ep")
+    ref = jax_fact(FACT_MOE, {"batch": 8, "seed": 2}, tmp / "moe.pt")
+    spec = {**ref["spec"], "train": 1}
+    step = {**ref["spec"], "clip": 0.05}
+    forms, steps = W.run([(W.fact_form, {**spec, "form": "ep",
+                                         "mesh": {"expert": 2}}),
+                          (W.fact_moe_step, {**step, "mesh": {"expert": 2}})],
+                         2, tmp / "gloo")
+    return ref, forms, steps, W.fact_moe_step(step)
+
+
+def test_expert_parallel_fact_moe_matches_jax(ep):
+    """ep2: logits 1e-5, the aux term 1e-6 and every gradient (the
+    router's, through the combine weights and the aux term, included) at
+    JAX's EP tolerance (rtol 1e-4, atol 1e-5), the expert leaves gathered
+    to (E, …) from each rank's two experts."""
+    from torch_fact_reference import assert_grads
+
+    ref, forms, _, _ = ep
+    for rank in forms:
+        np.testing.assert_allclose(rank["logits"].numpy(), ref["logits"],
+                                   rtol=0, atol=1e-5)
+        assert rank["aux"] == pytest.approx(ref["aux"], abs=1e-6)
+        assert rank["aux"] > 0
+        assert_grads(rank["grads"], ref["grads"], rtol=1e-4, atol=1e-5)
+
+
+def test_each_rank_holds_half_the_experts_and_the_checkpoint_loads(ep):
+    """JAX's 8 expert-sharded leaves (w1, b1, w2, b2 of two layers); each
+    rank stores half the expert bytes; the gathered state loads strictly
+    into a one-device FACT-MoE and is the weights it started from."""
+    from torch_fact_reference import FACT_MOE, port_model
+
+    ref, forms, _, _ = ep
+    full = torch.load(ref["spec"]["weights"])
+    whole = sum(v.numel() * 4 for k, v in full.items()
+                if k.rpartition(".")[2] in tmoe.EXPERT_LEAVES)
+    model = FactModel(dtype=torch.float32, **port_model(FACT_MOE))
+    model.load_state_dict(forms[0]["state"], strict=True)
+    for rank in forms:
+        assert rank["expert_leaves"] == 8
+        assert 2 * rank["expert_bytes"] == whole
+        for k, v in rank["state"].items():
+            assert torch.equal(v, full[k]), k
+
+
+def test_expert_parallel_train_step_clips_over_the_expert_axis(ep):
+    """``make_train_step`` on the ep2 state: clip 0.05 binds, so the
+    gradients in Adam's first moments carry the global norm's factor; the
+    expert leaves count once over 'expert' and the step (loss, moments,
+    parameters) is the single-device one."""
+    _, _, steps, one = ep
+    for rank in steps:
+        assert rank["loss"] == pytest.approx(one["loss"], abs=1e-6)
+        got, want = rank["snap"]["optimizer"], one["snap"]["optimizer"]
+        assert set(got["state"]) == set(want["state"])
+        for i, st in want["state"].items():
+            torch.testing.assert_close(got["state"][i]["exp_avg"],
+                                       st["exp_avg"], rtol=1e-4, atol=1e-8)
+        for k, v in one["snap"]["model"].items():
+            torch.testing.assert_close(rank["snap"]["model"][k], v,
+                                       rtol=0, atol=1e-5)
+
+
+def test_experts_must_divide_the_expert_axis():
+    """JAX's error: num_experts % ep != 0."""
+    from surya_tpu_torch.core.mesh import Mesh
+
+    mesh = Mesh({"expert": 2}, {"expert": 0}, {"expert": object()})
+    with pytest.raises(ValueError, match="num_experts=3 not divisible"):
+        tmoe.MoEFFN(16, num_experts=3, mesh=mesh)

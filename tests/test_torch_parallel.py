@@ -32,6 +32,7 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 import torch_dist_worker as W
 from surya_tpu.core import config as jcfg
@@ -377,3 +378,54 @@ def test_cli_under_torchrun_on_two_cpu_ranks(tmp_path):
          str(tmp_path / "run" / "ckpt"), *tiny],
         cwd=root, env=env, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
+
+
+@pytest.mark.slow
+def test_fact_parallel_forms_at_world_size_8_match_jax(tmp_path):
+    """``MULTICHIP_r05.json``'s four FACT forms on 8 gloo ranks, each held
+    to JAX's unsharded result within JAX's own bounds: sp8 ring attention
+    (max error < 1e-4, finite gradients), pp4×dp2 FACT pipeline (logits
+    1e-4, every gradient rtol 1e-4 / atol 1e-5), ep4×dp2 FACT-MoE (logits
+    1e-4, 8 expert-sharded leaves) and pp2×tp2×dp2 + ZeRO-1 (loss 1e-6,
+    gradients 1e-5, as ``tests/test_composed_parallel.py``; TP at JAX's
+    test threshold of 1,024 elements)."""
+    from torch_fact_reference import FACT, FACT_MOE, assert_grads, jax_fact
+
+    from surya_tpu.parallel.ring_attention import (
+        full_attention_reference as jax_full,
+    )
+
+    ring = {"qkv": (2, 32, 4, 16), "seed": 0, "world": 8,
+            "cases": {"plain": {}, "grad": {"grad": True}}}
+    dense = jax_fact(FACT, {"batch": 8, "seed": 2}, tmp_path / "fact.pt")
+    moe = jax_fact(FACT_MOE, {"batch": 8, "seed": 2}, tmp_path / "moe.pt")
+    jobs = [(W.ring_cases, ring),
+            (W.fact_form, {**dense["spec"], "form": "pp", "microbatches": 4,
+                           "mesh": {"pipe": 4, "data": 2}}),
+            (W.fact_form, {**moe["spec"], "form": "ep", "train": 1,
+                           "mesh": {"expert": 4, "data": 2}}),
+            (W.fact_form, {**dense["spec"], "form": "pp", "microbatches": 4,
+                           "mesh": {"pipe": 2, "model": 2, "data": 2},
+                           "tp": True, "zero1": True})]
+    sp8, pp, ep, comp = W.run(jobs, 8, tmp_path / "gloo")
+
+    q, k, v = W.qkv_of(ring)
+    want = np.asarray(jax_full(*(jnp.asarray(a) for a in (q, k, v))))
+    for rank in sp8:
+        assert float(np.abs(rank["plain"]["out"].numpy() - want).max()) < 1e-4
+        assert all(torch.isfinite(g).all() for g in rank["grad"]["grads"])
+    for rank in pp:
+        rows = np.concatenate([dense["logits"][a:b] for a, b in rank["rows"]])
+        assert float(np.abs(rank["logits"].numpy() - rows).max()) < 1e-4
+        assert_grads(rank["grads"], dense["grads"], rtol=1e-4, atol=1e-5)
+    for rank in ep:
+        assert float(np.abs(rank["logits"].numpy() - moe["logits"]).max()) \
+            < 1e-4
+        assert rank["expert_leaves"] == 8
+        assert rank["loss"] == pytest.approx(moe["loss"], abs=1e-5)
+    for rank in comp:
+        assert rank["loss"] == pytest.approx(dense["loss"], abs=1e-6)
+        assert_grads(rank["grads"], dense["grads"], rtol=0, atol=1e-5)
+        assert rank["moment_leaves"] > 0
+        assert any(not torch.equal(rank["stepped"][k], rank["state"][k])
+                   for k in rank["state"])

@@ -326,10 +326,10 @@ def test_dropout_stream_is_seeded_explicit_and_not_the_global_one():
 def test_sharded_variants_name_their_roadmap_item():
     """zero1 and fsdp on one device (no torchrun) take the single-device
     step, as JAX's sharding over a one-device mesh does; a mesh of more
-    than one device outside torchrun names it; what stays unported names
-    ROADMAP A11b (tests/test_torch_parallel.py runs the sharded steps)."""
+    than one device outside torchrun names it, the ('data', 'model',
+    'seq') ones and the grids of other axes alike
+    (tests/test_torch_parallel.py runs the sharded steps)."""
     from surya_tpu_torch.core.mesh import MeshSpec, create_mesh
-    from surya_tpu_torch.models.temporal.fact import fact_apply_pipelined
 
     batch = _batch()
     losses = []
@@ -343,8 +343,10 @@ def test_sharded_variants_name_their_roadmap_item():
     assert losses[0] == losses[1] == losses[2]
     with pytest.raises(RuntimeError, match="torchrun"):
         create_mesh(MeshSpec(data=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11b"):
-        fact_apply_pipelined(None, None)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        create_mesh({"pipe": 2, "data": 1}, device="cpu")
+    one = create_mesh({"expert": 1, "data": 1}, device="cpu")
+    assert not one.distributed and one.shape["expert"] == 1
 
 
 def test_optimizer_settings_and_learning_rate_access():

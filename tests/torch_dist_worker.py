@@ -166,3 +166,232 @@ def predict(spec: dict) -> dict:
     images, feats, _ = batch_of(spec)
     preds, probs = pred.predict(images, feats)
     return {"preds": preds, "probs": probs}
+
+
+# ---------------------------------------------------------------------------
+# FACT's parallel variants: ring attention, the pipeline, expert parallelism
+# ---------------------------------------------------------------------------
+
+def qkv_of(spec: dict, dtype=np.float32):
+    """(q, k, v) of shape ``spec["qkv"]`` (B, T, H, D), from
+    ``spec["seed"]``."""
+    rng = np.random.default_rng(spec.get("seed", 0))
+    return tuple(rng.normal(size=spec["qkv"]).astype(dtype)
+                 for _ in range(3))
+
+
+def ring_cases(spec: dict) -> dict:
+    """``ring_attention`` over a 'seq' axis of every rank, each case of
+    ``spec["cases"]`` (name → keyword arguments: ``causal``, ``pad_keys``
+    (the last keys masked), ``bias``, ``bf16``, ``dropout``, ``grad``) →
+    the output, the q/k/v gradients of ``sum(out²)`` with ``grad``, and
+    the bytes shifted around the ring."""
+    from surya_tpu_torch.core import mesh as cmesh
+    from surya_tpu_torch.parallel.ring_attention import ring_attention
+
+    mesh = cmesh.create_mesh({"seq": spec.get("world", 1)}, device="cpu")
+    out = {}
+    for name, case in spec["cases"].items():
+        q, k, v = (torch.from_numpy(a) for a in qkv_of(
+            {**spec, **case.get("shape", {})}))
+        t = q.shape[1]
+        if case.get("bf16"):
+            q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        if case.get("grad"):
+            q, k, v = (x.requires_grad_() for x in (q, k, v))
+        kw = {}
+        if case.get("causal"):
+            kw["mask"] = torch.tril(torch.ones(t, t, dtype=torch.bool))
+        if case.get("pad_keys"):
+            keep = torch.arange(t) < t - case["pad_keys"]
+            kw["mask"] = keep[None, None, None, :]
+        if case.get("bias"):
+            rng = np.random.default_rng(7)
+            kw["bias"] = torch.from_numpy(
+                rng.normal(size=(1, q.shape[2], t, t)).astype(np.float32))
+        if case.get("dropout"):
+            kw.update(dropout_rate=case["dropout"],
+                      generator=torch.Generator().manual_seed(case["seed"]),
+                      broadcast_dropout=case.get("broadcast", True))
+        before = cmesh.collective_bytes["ppermute"]
+        o = ring_attention(q, k, v, mesh, **kw)
+        row = {"out": o.detach().float(),
+               "ppermute_bytes": cmesh.collective_bytes["ppermute"] - before}
+        if case.get("grad"):
+            (o.float() ** 2).sum().backward()
+            row["grads"] = [x.grad for x in (q, k, v)]
+        out[name] = row
+    return out
+
+
+def fact_inputs(spec: dict):
+    """FACT's global batch: (B, T, S, S, 3) clips, (B, T, 47) features and
+    labels from ``spec["seed"]``."""
+    rng = np.random.default_rng(spec.get("seed", 0))
+    b, t, s = spec["batch"], spec["seq_len"], spec["size"]
+    return (rng.normal(size=(b, t, s, s, 3)).astype(np.float32),
+            rng.normal(size=(b, t, 47)).astype(np.float32),
+            rng.integers(0, spec["classes"], b).astype(np.int64))
+
+
+def fact_form(spec: dict) -> dict:
+    """A small FACT (``spec["model"]``, weights from ``spec["weights"]``) in
+    one of its parallel forms on the mesh ``spec["mesh"]`` (the plain model
+    without one) → its logits and the cross-entropy's gradients of every
+    parameter in the single-device form (split leaves gathered, every
+    pipeline stage's layers), with the aux term for FACT-MoE.
+
+    ``form``: "plain"; "sp" (``cp_mesh``); "pp" (``fact_apply_pipelined``,
+    ``spec["microbatches"]``, each stage holding only its layers, the batch
+    over 'data' when the mesh has one; ``spec["tp"]`` splits the weights
+    over 'model' at 1024 elements and ``spec["zero1"]`` takes one ZeRO-1
+    AdamW step); "ep" (``moe_mesh``). ``spec["train"]`` runs train mode on
+    ``torch.Generator().manual_seed(spec["train"])``."""
+    from surya_tpu_torch.core import mesh as cmesh
+    from surya_tpu_torch.models.losses import cross_entropy
+    from surya_tpu_torch.models.temporal.fact import (
+        FactModel,
+        fact_apply_pipelined,
+    )
+    from surya_tpu_torch.parallel import moe as tmoe
+    from surya_tpu_torch.parallel import pipeline, zero
+
+    form = spec["form"]
+    mesh = cmesh.create_mesh(spec.get("mesh", {}), device="cpu")
+    kw = dict(spec["model"], dtype=torch.float32)
+    if form == "sp":
+        kw["cp_mesh"] = mesh
+    if form == "ep":
+        kw["moe_mesh"] = mesh
+    model = FactModel(**kw)
+    full = torch.load(spec["weights"])
+    if form == "pp":
+        pipeline.keep_stage_layers(model, "fusion", model.num_layers, mesh)
+        full = {k: v for k, v in full.items() if k in model.state_dict()}
+    zero.load_full_model_state(model, full, mesh)
+    if spec.get("tp"):
+        from surya_tpu_torch.parallel.sharding import partition_params
+
+        partition_params(model, mesh, min_elements=1024)
+    model.train(bool(spec.get("train")))
+    gen = (torch.Generator().manual_seed(spec["train"])
+           if spec.get("train") else None)
+    images, feats, labels = (torch.from_numpy(a) for a in fact_inputs(spec))
+    before = dict(cmesh.collective_bytes)
+    rows = None
+    if form == "pp":
+        logits = fact_apply_pipelined(
+            model, images, feats, mesh, num_microbatches=spec["microbatches"],
+            batch_spec="data" if mesh.shape["data"] > 1 else None,
+            generator=gen)
+        if mesh.shape["data"] > 1:
+            rows = mesh.row_shard(spec["batch"], spec["microbatches"])
+            labels = rows.take(labels)
+    else:
+        logits = model(images, feats, gen)
+    aux = sum((m.aux_loss for m in model.modules()
+               if isinstance(m, tmoe.MoEFFN) and m.aux_loss is not None),
+              torch.zeros(()))
+    loss = cross_entropy(logits.float(), labels) + aux
+    loss.backward()
+    moved = {k: cmesh.collective_bytes[k] - before[k] for k in before}
+    if rows is not None:   # the data-parallel step's average
+        for p in model.parameters():
+            if p.grad is not None:
+                cmesh.all_reduce_(p.grad, mesh.group("data")).div_(
+                    rows.ranks)
+        loss = cmesh.all_reduce_(loss.detach().clone(),
+                                 mesh.group("data")) / rows.ranks
+    grads = zero.full_gradients(model)
+    expert_bytes = sum(p.numel() * p.element_size() for n, p in
+                       model.named_parameters()
+                       if n.rpartition(".")[2] in tmoe.EXPERT_LEAVES)
+    out = {"logits": logits.detach(), "loss": float(loss.detach()),
+           "aux": float(aux.detach()),
+           "rows": None if rows is None else rows.spans,
+           "bytes": moved, "expert_bytes": expert_bytes,
+           "expert_leaves": sum(bool(s) for s in tmoe.expert_shardings(
+               model, mesh).values())}
+    if form == "pp":
+        grads = pipeline.gather_stages(grads, "fusion", model.num_layers,
+                                       mesh)
+        out["state"] = pipeline.gather_stages(
+            zero.full_model_state(model, mesh), "fusion", model.num_layers,
+            mesh)
+    else:
+        out["state"] = zero.full_model_state(model, mesh)
+    out["grads"] = grads
+    if spec.get("zero1"):
+        from torch.distributed.optim import ZeroRedundancyOptimizer
+
+        opt = ZeroRedundancyOptimizer(
+            [p for p in model.parameters() if p.grad is not None],
+            optimizer_class=torch.optim.AdamW,
+            process_group=mesh.group("data"), lr=1e-3, weight_decay=1e-4)
+        opt.step()
+        out["moment_leaves"] = sum(len(st) > 0 for st in
+                                   opt.optim.state.values())
+        out["stepped"] = pipeline.gather_stages(
+            zero.full_model_state(model, mesh), "fusion", model.num_layers,
+            mesh)
+    return out
+
+
+def mesh_rules(spec: dict) -> dict:
+    """``ppermute`` and the two gradient rules of ``core/mesh.py`` over every
+    rank, on rank-dependent values: each result and its input's gradient
+    of ``sum(result · c)`` (``c`` the rank's own weights for the ranked
+    forms, the same on every rank for the replicated ones)."""
+    from surya_tpu_torch.core import mesh as cmesh
+
+    group = dist.group.WORLD
+    me, n = dist.get_rank(), dist.get_world_size()
+    own = torch.arange(6.0) + 10 * me                 # differs per rank
+    same = torch.arange(6.0 * n).reshape(n * 2, 3)    # replicated
+    out = {}
+    for name, (fn, x, c) in {
+            "ppermute": (lambda t: cmesh.ppermute(t, group, 1), own,
+                         own + 1),
+            "ppermute_back": (lambda t: cmesh.ppermute(t, group, -1), own,
+                              own * 2),
+            "split": (lambda t: cmesh.split(t, group, 0), same,
+                      own[:6].reshape(2, 3)),
+            "split_whole": (lambda t: cmesh.split(t, group), same,
+                            same * (me + 1)),
+            "gather": (lambda t: cmesh.gather(t, group, 0),
+                       own.reshape(2, 3), same),
+            "combine_sum": (lambda t: cmesh.combine_sum(t, group), own,
+                            torch.ones(6) * 3)}.items():
+        x = x.clone().requires_grad_()
+        y = fn(x)
+        (y * c).sum().backward()
+        out[name] = {"y": y.detach(), "grad": x.grad, "x": x.detach(),
+                     "c": c}
+    return out
+
+
+def fact_moe_step(spec: dict) -> dict:
+    """One ``fact`` train step (f32, dropout 0, clip ``spec["clip"]``) of the
+    FACT-MoE ``spec["model"]`` from ``spec["weights"]``, expert-parallel
+    over the mesh's 'expert' axis when it has one → the loss and the
+    single-device snapshot (expert leaves and their moments gathered)."""
+    from surya_tpu_torch.core.checkpoint import snapshot
+    from surya_tpu_torch.core.config import get_preset
+    from surya_tpu_torch.core.mesh import create_mesh
+    from surya_tpu_torch.models.temporal.fact import FactModel
+    from surya_tpu_torch.parallel.zero import load_full_model_state
+    from surya_tpu_torch.train.steps import (
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = get_preset("fact").override({
+        "model.compute_dtype": "float32", "model.dropout": "0.0",
+        "train.grad_clip": str(spec["clip"]), "train.lr": "1e-3"})
+    mesh = create_mesh(spec.get("mesh", {}), device="cpu")
+    model = FactModel(dtype=torch.float32, moe_mesh=mesh, **spec["model"])
+    load_full_model_state(model, torch.load(spec["weights"]), mesh)
+    state, tx = create_train_state(model, cfg, device="cpu", mesh=mesh)
+    state, metrics = make_train_step(model, tx, cfg, mesh=mesh)(
+        state, fact_inputs(spec))
+    return {"loss": float(metrics["loss"]), "snap": snapshot(state)}
