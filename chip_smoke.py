@@ -16,6 +16,12 @@ processes that run it):
   ``make_train_step`` at batch 256, bf16 over f32 parameters, dropout 0.5,
   a fixed batch from seed 0, then an eval step; and one f32 step on the
   card against the same step on the CPU;
+- **bench**: ``python -m surya_tpu_torch bench`` in three children:
+  ``quadtree`` train at its defaults (batch 256, 20 steps), the same in
+  infer mode, and ``BENCH_MODEL=quadtree-3d``; one line each with
+  ``bench.py``'s keys, the card, and exactly 4 × 20 launches of each
+  kernel form the model runs; the train line's images/s beside the
+  ``train`` phase's;
 - **augment**: ``device_transform`` at batch 256, 256 px → 224, train
   (augmentation) and eval (resize) split, on the card against the CPU
   with the same drawn parameters (plain PyTorch on both sides);
@@ -24,6 +30,12 @@ processes that run it):
   synthetic pack of the replay set's sizes, its second epoch traced;
   ``eval`` on the best checkpoint; a run sent SIGTERM at its first step
   and resumed;
+- **replay**: the replay campaign's ``data`` phase at full width (1,280
+  quality-92 JPEGs, 848 windows, ``pack`` and ``pack --sequences``), then
+  seed 0 of ``quadtree-fusion`` through the published recipe (the CLI's
+  ``train`` in a child: 10 epochs of 48 steps at batch 16, early stop,
+  best reload): test accuracy at least 0.80, launches counted exactly;
+  Grad-CAM on its best checkpoint, card vs CPU end to end at f32;
 - **stem_probe**: a train-mode stem forward (cuDNN conv 7x7/2 on
   (256, 224, 224, 3) bf16, then the two stem-BN kernels) against
   ``F.batch_norm`` + ReLU on the same map;
@@ -98,6 +110,18 @@ processes that run it):
   at batch 16: exactly 2 training-form head launches, each held against
   its plain version on its own inputs.
 
+The phases run in that order, with two exceptions that keep the script
+well inside its time limit. The replay set is written and packed by a
+child from the start, while the kernels build and are checked, and is
+awaited before anything is timed. The stages whose children only check
+results run side by side after **generate** (``side_by_side``): the
+loop's eval and preempted run, the replay run and its Grad-CAM, the
+spatial and temporal CLI runs, the export artifacts, and the gloo runs of
+**parallel** and **fact_parallel**; then, one at a time, the stages they
+hold that time something: the loop's resumed run, the timed bf16
+artifact, and the NCCL runs. Every phase line carries ``at_s``, the
+script's seconds so far.
+
 It times kernels, serving and the train step with CUDA events; each
 main-path kernel in turns with its library yardstick, after the same L2
 flush, with the median of the per-pair ratio, its launch plan, and the
@@ -111,6 +135,7 @@ the repository around it; it imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -169,7 +194,14 @@ HEAD_SHAPES += TEMPORAL_HEAD_SHAPES
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max |kernel - plain| / max |plain|
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the script's seconds so
+    far (``at_s``), so the lines give the run's time line."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - T_START, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -862,7 +894,7 @@ def train_phase(quadrant, fusion_head, card):
     """``quadtree-fusion`` through create_train_state / make_train_step at
     full width: batch 256, bf16 over f32 parameters, dropout 0.5, one fixed
     batch (put on the card once, as a prefetching loader would), then an
-    eval step with padded rows."""
+    eval step with padded rows. → (launches, median step ms)."""
     from surya_tpu_torch.core.config import get_preset
     from surya_tpu_torch.models import get_model
     from surya_tpu_torch.models.losses import cross_entropy
@@ -992,7 +1024,7 @@ def train_phase(quadrant, fusion_head, card):
           "top_kernels": [{"name": n[:100], "ms_per_step": ms,
                            "launches_per_step": c} for n, ms, c in top],
           **card})
-    return launches
+    return launches, step_ms
 
 
 def train_f32_parity(card, batch_size=8):
@@ -1327,16 +1359,91 @@ def augment_phase(card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# children side by side: the phases whose children only check results run
+# together at the end, each one's children while another's are awaited
+# ---------------------------------------------------------------------------
+
+SOLO = "solo"   # what a side-by-side phase yields before a stage it times
+_CHILDREN: list = []   # every child started through start_child
+POOL = concurrent.futures.ThreadPoolExecutor(max_workers=16)
+
+
+def start_child(cmd: list, stderr=subprocess.PIPE):
+    """``cmd`` from the repository with its output piped, started and
+    recorded, so that :func:`stop_children` can end it."""
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=stderr, text=True)
+    _CHILDREN.append(proc)
+    return proc
+
+
+def stop_children() -> None:
+    """Kill every recorded child that is still running."""
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def until_done(*futures):
+    """Yield while any of ``futures`` runs: a side-by-side phase waits so."""
+    while not all(f.done() for f in futures):
+        yield
+
+
+def side_by_side(phases: dict) -> dict:
+    """Run phases written as generators side by side. Each yields while
+    its children (or a blocking call handed to :data:`POOL`) run, and the
+    phases are resumed in turn, so their children overlap while the work
+    a phase does in this process stays in this thread, one phase at a
+    time. A phase that yields :data:`SOLO` is resumed only once every
+    other phase has ended, and then alone, so what it times has the card
+    and the host to itself. → {name: the value each phase returned}. If a
+    phase raises, the others are closed and every child is killed."""
+    done, live, solo = {}, dict(phases), []
+
+    def step(name, gen):
+        try:
+            return "solo" if next(gen) == SOLO else "live"
+        except StopIteration as stop:
+            done[name] = stop.value
+            return "done"
+
+    try:
+        while live:
+            for name, gen in list(live.items()):
+                state = step(name, gen)
+                if state != "live":
+                    del live[name]
+                    if state == "solo":
+                        solo.append((name, gen))
+            time.sleep(0.1)
+        for name, gen in solo:
+            while step(name, gen) != "done":
+                time.sleep(0.1)
+    except BaseException:
+        for gen in [*live.values(), *(g for _, g in solo)]:
+            gen.close()
+        stop_children()
+        raise
+    return done
+
+
 def run_cli(args, timeout=900):
     """``python -m surya_tpu_torch ARGS`` from the repository, as a user
     runs it → (stdout, the JSON of its last line)."""
-    res = subprocess.run([sys.executable, "-m", "surya_tpu_torch", *args],
-                         cwd=REPO, capture_output=True, text=True,
-                         timeout=timeout)
-    if res.returncode != 0:
-        raise AssertionError(f"{args[0]} failed ({res.returncode}):\n"
-                             f"{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
-    return res.stdout, json.loads(res.stdout.strip().splitlines()[-1])
+    proc = start_cli(args)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"{args[0]} failed ({proc.returncode}):\n"
+                             f"{stdout[-4000:]}\n{stderr[-4000:]}")
+    return stdout, json.loads(stdout.strip().splitlines()[-1])
 
 
 def epoch_records(run_dir):
@@ -1374,6 +1481,37 @@ def trace_summary(trace_path):
             host)
 
 
+def preempt(flags, run):
+    """A ``train`` child sent SIGTERM at its first logged step → its loop
+    state at the stop."""
+    import signal
+
+    proc = start_child([sys.executable, "-m", "surya_tpu_torch", "train",
+                        *flags, "--out", run, "--train.epochs=2",
+                        "--train.log_every=1"], stderr=subprocess.STDOUT)
+    watchdog = threading.Timer(900, proc.kill)
+    watchdog.start()
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("step="):
+                proc.send_signal(signal.SIGTERM)
+                break
+        out, _ = proc.communicate(timeout=900)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines.append(out)
+    assert proc.returncode == 0, "".join(lines)[-4000:]
+    stopped = json.loads("".join(lines).strip().splitlines()[-1])
+    assert stopped["preempted"] is True, stopped
+    with open(os.path.join(run, "ckpt", "loop_state.json")) as f:
+        return json.load(f)
+
+
 def loop_phase(card, augment):
     """The training pipeline as a user runs it. A pack of seeded synthetic
     images at the replay set's sizes (768/256/256, 256 px, about 250 MB)
@@ -1383,9 +1521,11 @@ def loop_phase(card, augment):
     ``eval`` on its best checkpoint; a third ``train`` sent SIGTERM at its
     first step and resumed with ``--resume``. Each child reports the
     kernel wrappers' launch counters of its own run, training and
-    inference form apart."""
+    inference form apart. A generator: the first advance packs and runs
+    the traced train alone; the eval and the preempted run, which only
+    check results, run side by side (:func:`side_by_side`), and the
+    resumed run, whose second epoch is the steady one timed, alone."""
     import shutil
-    import signal
     import tempfile
 
     from surya_tpu_torch.data.packed import pack_arrays
@@ -1418,44 +1558,24 @@ def loop_phase(card, augment):
         busy_ms, top, host_ms = trace_summary(
             os.path.join(root, "prof", "trace_epoch1.json"))
         assert busy_ms > 0, "the profiler recorded no device time"
+        yield   # the traced run is done; the rest only checks results
 
         best = os.path.join(run, "ckpt", f"{summary['best_epoch']}.pt")
-        _, ev = run_cli(["eval", best, *flags])
+        evaluated = POOL.submit(run_cli, ["eval", best, *flags])
+        # SIGTERM at the first step, then --resume
+        run3 = os.path.join(root, "run3")
+        preempted = POOL.submit(preempt, flags, run3)
+        yield from until_done(evaluated, preempted)
+        _, ev = evaluated.result()
         tests = {"training": 0, "inference": LOOP_SPLITS["test"] // 16}
         assert ev["kernel_launches"] == {
             "quadrant": tests, "fusion_head": tests,
             "channel_stats": 0, "affine_relu": 0}, ev["kernel_launches"]
         assert ev["count"] == summary["test"]["count"] == LOOP_SPLITS["test"]
 
-        # SIGTERM at the first step, then --resume
-        run3 = os.path.join(root, "run3")
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "surya_tpu_torch", "train", *flags,
-             "--out", run3, "--train.epochs=2", "--train.log_every=1"],
-            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-        watchdog = threading.Timer(900, proc.kill)
-        watchdog.start()
-        try:
-            lines = []
-            for line in proc.stdout:
-                lines.append(line)
-                if line.startswith("step="):
-                    proc.send_signal(signal.SIGTERM)
-                    break
-            out, _ = proc.communicate(timeout=900)
-        finally:
-            watchdog.cancel()
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        lines.append(out)
-        assert proc.returncode == 0, "".join(lines)[-4000:]
-        stopped = json.loads("".join(lines).strip().splitlines()[-1])
-        assert stopped["preempted"] is True, stopped
-        with open(os.path.join(run3, "ckpt", "loop_state.json")) as f:
-            ls = json.load(f)
+        ls = preempted.result()
         assert ls["preempt"] and ls["epoch"] == 0 and ls["batch_idx"] > 0
+        yield SOLO
         _, resumed = run_cli(["train", *flags, "--out", run3,
                               "--train.epochs=2", "--resume"])
         resumed_epochs = epoch_records(run3)
@@ -1751,7 +1871,8 @@ def spatial_cli(card):
     pack for ``comparative-mobilenet-v2`` and for ``quadtree-fusion
     --model.name=hierarchical_quadtree``, then ``eval`` on each best
     checkpoint: finite losses, eval = the loop's test loss, and each
-    child's head launches counted exactly."""
+    child's head launches counted exactly. The two trains run at once,
+    then the two evals. A side-by-side phase (:func:`side_by_side`)."""
     import shutil
     import tempfile
 
@@ -1764,14 +1885,26 @@ def spatial_cli(card):
         pack_arrays(pack, synthetic_splits(SPATIAL_SPLITS), CLASS_NAMES)
         steps = SPATIAL_SPLITS["train"] // 16
         tests = SPATIAL_SPLITS["test"] // 16
+        flags = [[*preset, f"--data.packed_dir={pack}"]
+                 for preset in SPATIAL_CLI]
+        runs = [os.path.join(root, f"run{i}") for i in range(len(flags))]
+        # the two trains run at once, then the two evals
+        trains = POOL.submit(finish, {i: start_cli(
+            ["train", *f, "--out", run, "--train.epochs=1"])
+            for i, (f, run) in enumerate(zip(flags, runs))})
+        yield from until_done(trains)
+        trains = trains.result()
+        summaries = [last_json(trains[i][0]) for i in range(len(flags))]
+        evals = POOL.submit(finish, {i: start_cli(
+            ["eval", os.path.join(run, "ckpt",
+                                  f"{summary['best_epoch']}.pt"), *f])
+            for i, (f, run, summary) in enumerate(zip(flags, runs,
+                                                      summaries))})
+        yield from until_done(evals)
+        evals = evals.result()
         for i, preset in enumerate(SPATIAL_CLI):
-            flags = [*preset, f"--data.packed_dir={pack}"]
-            run = os.path.join(root, f"run{i}")
-            t0 = time.perf_counter()
-            _, summary = run_cli(["train", *flags, "--out", run,
-                                  "--train.epochs=1"])
-            train_s = time.perf_counter() - t0
-            epochs = epoch_records(run)
+            summary, ev = summaries[i], last_json(evals[i][0])
+            epochs = epoch_records(runs[i])
             want = {"training": steps,
                     "inference": SPATIAL_SPLITS["valid"] // 16 + tests}
             launches = summary["kernel_launches"]
@@ -1780,8 +1913,6 @@ def spatial_cli(card):
             assert [r["steps"] for r in epochs] == [steps]
             assert np.isfinite(epochs[0]["train_loss"]), epochs
             assert np.isfinite(summary["test"]["loss"]), summary
-            best = os.path.join(run, "ckpt", f"{summary['best_epoch']}.pt")
-            _, ev = run_cli(["eval", best, *flags])
             assert ev["kernel_launches"]["fusion_head"] == {
                 "training": 0, "inference": tests}, ev["kernel_launches"]
             assert ev["count"] == summary["test"]["count"]
@@ -1789,7 +1920,7 @@ def spatial_cli(card):
                 1.0, abs(summary["test"]["loss"])), (ev, summary["test"])
             totals["fusion_head"] += want["inference"] + tests
             totals["fusion_head_train"] += steps
-            rows.append({"args": preset, "train_cli_s": train_s,
+            rows.append({"args": preset, "train_cli_s": trains[i][1],
                          "train_loss": epochs[0]["train_loss"],
                          "val_loss": epochs[0]["val_loss"],
                          "test_loss": summary["test"]["loss"],
@@ -1806,10 +1937,10 @@ def spatial_cli(card):
 
 def spatial_phase(quadrant, fusion_head, card):
     """Every spatial configuration (:data:`SPATIAL_MODELS`), Grad-CAM card
-    vs CPU, the CLI on two of them, and the head kernel timed at the two
-    new edge widths (VGG16's D = 25,344 and numerical_only's D = 128 →
-    H = 1024) in both forms. → (launches of the whole phase per kernel
-    form, timed rows)."""
+    vs CPU, and the head kernel timed at the two new edge widths (VGG16's
+    D = 25,344 and numerical_only's D = 128 → H = 1024) in both forms;
+    the CLI on two of them is :func:`spatial_cli`, run side by side. →
+    (launches of this process per kernel form, timed rows)."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (SPATIAL_SERVE, 224, 224, 3),
@@ -1832,8 +1963,6 @@ def spatial_phase(quadrant, fusion_head, card):
                         "train_step_ms": row["train"]["step_ms_median"]})
     del images, feats
     for k, v in spatial_cam(states, quadrant, fusion_head, card).items():
-        totals[k] += v
-    for k, v in spatial_cli(card).items():
         totals[k] += v
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -2066,7 +2195,9 @@ def temporal_cli(card):
     preset of :data:`TEMPORAL_CLI` (``quadtree-3d``, ``cnn-lstm``,
     ``hybrid-quadtree-3d``, ``fact``), then ``eval`` of each best
     checkpoint: finite losses, eval = the loop's test loss, and each
-    child's head launches counted exactly (none for FACT)."""
+    child's head launches counted exactly (none for FACT). The children of
+    each step run at once (their times are the step's wall time). A
+    side-by-side phase (:func:`side_by_side`)."""
     import shutil
     import tempfile
 
@@ -2089,30 +2220,43 @@ def temporal_cli(card):
             REPLAY_CLASSES)
         write_s = time.perf_counter() - t0
         count = {s: 8 * n for s, n in TEMPORAL_WINDOWS.items()}
+        # the children run at once (each mostly host start-up): the two
+        # packs, then every preset's train, then every eval
+        packs = POOL.submit(finish, {t: start_cli(
+            ["pack", "--sequences", "--root", windows, "--out",
+             os.path.join(root, f"pack{t}"), "--seq-len", str(t)])
+            for t in sorted({t for _, t in TEMPORAL_CLI})})
+        yield from until_done(packs)
+        packs = packs.result()
+        for t, (stdout, _) in packs.items():
+            meta = last_json(stdout)
+            assert meta["kind"] == "sequences", meta
+            assert {s: v["count"] for s, v in meta["splits"].items()} == count
+        flags = {preset: ["--preset", preset,
+                          f"--data.packed_dir={os.path.join(root, f'pack{t}')}",
+                          f"--data.seq_root={windows}"]
+                 for preset, t in TEMPORAL_CLI}
+        trains = POOL.submit(finish, {preset: start_cli(
+            ["train", *flags[preset], "--out",
+             os.path.join(root, f"run_{preset}"), "--train.epochs=2"])
+            for preset, _ in TEMPORAL_CLI})
+        yield from until_done(trains)
+        trains = trains.result()
+        summaries = {p: last_json(out) for p, (out, _) in trains.items()}
+        evals_run = POOL.submit(finish, {preset: start_cli(
+            ["eval", os.path.join(root, f"run_{preset}", "ckpt",
+                                  f"{summaries[preset]['best_epoch']}.pt"),
+             *flags[preset]]) for preset, _ in TEMPORAL_CLI})
+        yield from until_done(evals_run)
+        evals_run = evals_run.result()
         for preset, t in TEMPORAL_CLI:
-            pack = os.path.join(root, f"pack{t}")
-            pack_s = None   # one pack per T, shared by the presets
-            if not os.path.isdir(pack):
-                t0 = time.perf_counter()
-                _, meta = run_cli(["pack", "--sequences", "--root", windows,
-                                   "--out", pack, "--seq-len", str(t)])
-                pack_s = time.perf_counter() - t0
-                assert meta["kind"] == "sequences", meta
-                assert {s: v["count"]
-                        for s, v in meta["splits"].items()} == count
+            summary = summaries[preset]
             preset_cfg = get_preset(preset)
             bs = preset_cfg.data.batch_size
             heads = int(preset_cfg.model.name != "fact")
             steps = count["train"] // bs
             evals = -(-count["valid"] // bs), -(-count["test"] // bs)
-            flags = ["--preset", preset, f"--data.packed_dir={pack}",
-                     f"--data.seq_root={windows}"]
-            run = os.path.join(root, f"run_{preset}")
-            t0 = time.perf_counter()
-            _, summary = run_cli(["train", *flags, "--out", run,
-                                  "--train.epochs=2"])
-            train_s = time.perf_counter() - t0
-            epochs = epoch_records(run)
+            epochs = epoch_records(os.path.join(root, f"run_{preset}"))
             want = {"training": 2 * steps * heads,
                     "inference": (2 * evals[0] + evals[1]) * heads}
             launches = summary["kernel_launches"]
@@ -2122,8 +2266,7 @@ def temporal_cli(card):
             assert all(np.isfinite(r["train_loss"]) for r in epochs), epochs
             assert np.isfinite(summary["test"]["loss"]), summary
             assert summary["test"]["count"] == count["test"], summary
-            best = os.path.join(run, "ckpt", f"{summary['best_epoch']}.pt")
-            _, ev = run_cli(["eval", best, *flags])
+            ev = last_json(evals_run[preset][0])
             assert ev["kernel_launches"]["fusion_head"] == {
                 "training": 0, "inference": evals[1] * heads}, (
                 ev["kernel_launches"])
@@ -2137,7 +2280,8 @@ def temporal_cli(card):
                 totals["channel_stats"] += out["channel_stats"]
                 totals["affine_relu"] += out["affine_relu"]
             rows.append({"preset": preset, "seq_len": t, "batch": bs,
-                         "pack_cli_s": pack_s, "train_cli_s": train_s,
+                         "pack_cli_s": packs[t][1],
+                         "train_cli_s": trains[preset][1],
                          "train_loss": [r["train_loss"] for r in epochs],
                          "val_loss": [r["val_loss"] for r in epochs],
                          "clips_per_sec": [r["images_per_sec"]
@@ -2156,9 +2300,10 @@ def temporal_cli(card):
 
 def temporal_phase(quadrant, fusion_head, stem_bn, card):
     """Every temporal configuration (:data:`TEMPORAL_CONFIGS`), one temporal
-    request over HTTP, the CLI on the temporal replay set, and the head
-    kernel timed at the six temporal widths in both forms. → (launches of
-    the whole phase per kernel form, timed rows)."""
+    request over HTTP, and the head kernel timed at the six temporal
+    widths in both forms; the CLI on the temporal replay set is
+    :func:`temporal_cli`, run side by side. → (launches of this process
+    per kernel form, timed rows)."""
     from surya_tpu_torch.core.config import get_preset
 
     t0 = time.perf_counter()
@@ -2190,8 +2335,6 @@ def temporal_phase(quadrant, fusion_head, stem_bn, card):
         torch.cuda.empty_cache()
     assert http is not None
     totals.update(stem_bn.launches)
-    for k, v in temporal_cli(card).items():
-        totals[k] += v
     assert totals["quadrant"] == totals["quadrant_train"] == 0, totals
     assert totals["channel_stats"] == totals["affine_relu"] == 0, totals
 
@@ -2530,18 +2673,14 @@ OP_NAMES = ("quadrant_process", "fusion_head")
 
 def start_cli(args):
     """``python -m surya_tpu_torch ARGS`` from the repository, started."""
-    return subprocess.Popen([sys.executable, "-m", "surya_tpu_torch", *args],
-                            cwd=REPO, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    return start_child([sys.executable, "-m", "surya_tpu_torch", *args])
 
 
 def start_artifact_child(spec: dict):
     """``chip_smoke.py --serve-artifact SPEC``, started: a process that
     imports only ``surya_tpu_torch`` and serves an artifact."""
-    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                             "--serve-artifact", json.dumps(spec)],
-                            cwd=REPO, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    return start_child([sys.executable, os.path.abspath(__file__),
+                        "--serve-artifact", json.dumps(spec)])
 
 
 def finish(procs: dict, timeout=600) -> dict:
@@ -2659,8 +2798,10 @@ def export_phase(quadrant, fusion_head, card):
     operators and no training form. ``quadtree-3d`` at its batch of 8 (the
     head at D 1536: one launch per chunk). ``export-torch`` of the
     flagship and back through ``load_reference_state_dict``, bit-equal;
-    ``check`` exits 0 naming the card and the three kernel builds. → the
-    artifacts' launches on the card per kernel form."""
+    ``check`` exits 0 naming the card and the three kernel builds. A
+    side-by-side phase (:func:`side_by_side`): the timed bf16 artifact is
+    served alone, once every other phase has ended. → the artifacts'
+    launches on the card per kernel form."""
     from surya_tpu_torch.core.checkpoint import save_params
     from surya_tpu_torch.core.config import get_preset
     from surya_tpu_torch.infer.serve import Predictor
@@ -2708,7 +2849,9 @@ def export_phase(quadrant, fusion_head, card):
         "export_torch": start_cli(["export-torch", path("flagship.pt"),
                                    path("flagship_reference.pth")]),
         "check": start_cli(["check"])}
-    made = finish(procs)
+    made = POOL.submit(finish, procs)
+    yield from until_done(made)
+    made = made.result()
     lines = {k: last_json(v[0]) for k, v in made.items() if k != "check"}
     export_s = {k: made[k][1] for k in made}
 
@@ -2736,7 +2879,7 @@ def export_phase(quadrant, fusion_head, card):
                 "feats": path(f"{feats_name}.npy"), "probs": path(probs),
                 **kw}
 
-    served = finish({
+    served = POOL.submit(finish, {
         "f32": start_artifact_child(spec("flagship_f32.pt2", EXPORT_IMAGES,
                                          "f32_card.npy")),
         "f32_cpu": start_artifact_child(spec("flagship_f32.pt2",
@@ -2745,15 +2888,7 @@ def export_phase(quadrant, fusion_head, card):
         "3d": start_artifact_child(spec(
             "quadtree3d_bf16.pt2", TEMPORAL_EXPORT_CLIPS, "3d.npy",
             images="clips", feats_name="clip_feats"))})
-    served.update(finish({"bf16": start_artifact_child(spec(
-        "flagship_bf16.pt2", EXPORT_IMAGES, "bf16.npy",
-        time_against={"checkpoint": path("flagship.pt"),
-                      "preset": "quadtree-fusion",
-                      "param_dtype": "bfloat16"}))}))
-    runs = {k: last_json(v[0]) for k, v in served.items()}
-    probs = {k: np.load(path(f"{k}.npy")) for k in ("bf16", "3d")}
-    probs["f32"] = np.load(path("f32_card.npy"))
-    probs["f32_cpu"] = np.load(path("f32_cpu.npy"))
+    yield
 
     # the same weights and inputs through the in-process Predictor
     want = {"bf16": Predictor(cfg.model, state, batch_size=EXPORT_BATCH,
@@ -2766,6 +2901,18 @@ def export_phase(quadrant, fusion_head, card):
                            batch_size=cfg3d.data.batch_size,
                            param_dtype=torch.bfloat16,
                            input_dtype="uint8").predict(clips, clip_feats)
+    yield from until_done(served)
+    served = served.result()
+    yield SOLO
+    served.update(finish({"bf16": start_artifact_child(spec(
+        "flagship_bf16.pt2", EXPORT_IMAGES, "bf16.npy",
+        time_against={"checkpoint": path("flagship.pt"),
+                      "preset": "quadtree-fusion",
+                      "param_dtype": "bfloat16"}))}))
+    runs = {k: last_json(v[0]) for k, v in served.items()}
+    probs = {k: np.load(path(f"{k}.npy")) for k in ("bf16", "3d")}
+    probs["f32"] = np.load(path("f32_card.npy"))
+    probs["f32_cpu"] = np.load(path("f32_cpu.npy"))
     errs = {k: float(np.abs(probs[k] - want[k][1]).max()) for k in want}
     agree = {k: float((probs[k].argmax(-1) == want[k][0]).mean())
              for k in want}
@@ -3532,10 +3679,8 @@ PARALLEL_GRAD_TOL = 2e-2
 def start_torchrun(nproc: int, args: list):
     """``torchrun --standalone --nproc-per-node=N ARGS`` from the
     repository, started (``torch.distributed.run``, the same launcher)."""
-    return subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         f"--nproc-per-node={nproc}", *args], cwd=REPO,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return start_child([sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", f"--nproc-per-node={nproc}", *args])
 
 
 def parallel_spec(dtype: str, batch: int, mesh: dict) -> dict:
@@ -3788,7 +3933,9 @@ def parallel_phase(quadrant, fusion_head, card):
     parameters), then model=2 with every kernel call held against its
     plain version. (c) One NCCL rank: the DP step against the plain one,
     bytes all-reduced, the global-batch BN's cost and fsdp's peak memory.
-    → the kernel launches of (a) and (b)."""
+    A side-by-side phase (:func:`side_by_side`): (a) and (b) run at once
+    with the others, (c), which is timed, alone at the end. → the kernel
+    launches of (a) and (b)."""
     import shutil
     import tempfile
 
@@ -3807,10 +3954,19 @@ def parallel_phase(quadrant, fusion_head, card):
                  "quadtree-fusion", f"--data.packed_dir={pack}",
                  "--train.epochs=1"]
         forms = ("zero1", "fsdp")
-        cli = finish({f: start_torchrun(1, [*train, "--out",
-                                            os.path.join(root, f),
-                                            f"--train.{f}=true"])
-                      for f in forms}, timeout=400)
+        cli = POOL.submit(finish, {f: start_torchrun(
+            1, [*train, "--out", os.path.join(root, f), f"--train.{f}=true"])
+            for f in forms}, timeout=400)
+        gdir = os.path.join(root, "gloo")
+        os.makedirs(gdir)
+        gloo = POOL.submit(finish, {"gloo": start_torchrun(
+            2, [os.path.abspath(__file__), "--parallel-gloo", gdir])},
+            timeout=400)
+        yield
+        refs = {name: parallel_step(PARALLEL_RUNS[name])
+                for name in ("dp2_bf16", "dp2_f32")}
+        yield from until_done(cli, gloo)
+        cli, gloo_s = cli.result(), gloo.result()["gloo"][1]
         steps = LOOP_SPLITS["train"] // 16
         want = {"training": steps,
                 "inference": (LOOP_SPLITS["valid"] + LOOP_SPLITS["test"])
@@ -3836,17 +3992,8 @@ def parallel_phase(quadrant, fusion_head, card):
             served[form] = {"test": summary["test"],
                             "seconds": cli[form][1]}
 
-        gdir = os.path.join(root, "gloo")
-        os.makedirs(gdir)
-        t0 = time.perf_counter()
-        finish({"gloo": start_torchrun(2, [os.path.abspath(__file__),
-                                           "--parallel-gloo", gdir])},
-               timeout=400)
-        gloo_s = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(gdir, f"rank{r}.pt"),
                             weights_only=False) for r in range(2)]
-        refs = {name: parallel_step(PARALLEL_RUNS[name])
-                for name in ("dp2_bf16", "dp2_f32")}
         names = [n for n, t in trainable_mask(
             get_model(cfg.model, image_size=64), cfg.model.name,
             cfg.model.freeze_backbone).items() if t]
@@ -3879,6 +4026,7 @@ def parallel_phase(quadrant, fusion_head, card):
         if held is None:
             raise AssertionError("the model=2 run held no kernel call")
 
+        yield SOLO
         nfile = os.path.join(root, "nccl.json")
         finish({"nccl": start_torchrun(1, [os.path.abspath(__file__),
                                            "--parallel-nccl", nfile])},
@@ -4219,22 +4367,23 @@ def fact_parallel_phase(card) -> dict:
     plain loop (``fact_pass(form="loop")``), whose logits must differ from
     eval's. (2) One NCCL rank: the same code at axis size 1, and the tick
     loop's cost. (3) With two or more cards, the NCCL forms over min(4,
-    count) of them. → the hand kernels' launches of the path in this
-    process and in every rank (FACT runs none)."""
+    count) of them. A side-by-side phase (:func:`side_by_side`): (1) runs
+    with the others, (2) and (3), which are timed, alone at the end. → the
+    hand kernels' launches of the path in this process (while it builds
+    the references) and in every rank (FACT runs none)."""
     import shutil
     import tempfile
 
-    from surya_tpu_torch.ops.cuda import fusion_head, quadrant
-
     t_phase = time.perf_counter()
-    reset_launches(quadrant, fusion_head)
-    before = launch_counts()
     root = tempfile.mkdtemp(prefix="surya_fact_parallel_")
     try:
         gdir = os.path.join(root, "gloo")
         os.makedirs(gdir)
-        child = start_torchrun(2, [os.path.abspath(__file__), "--fact-gloo",
-                                   gdir])
+        child = POOL.submit(finish, {"gloo": start_torchrun(
+            2, [os.path.abspath(__file__), "--fact-gloo", gdir])},
+            timeout=400)
+        yield
+        before = launch_counts()
         batch = fact_batch(FACT_BATCH)   # the references, meanwhile
         refs = {}
         for name, (form, moe, seed) in {
@@ -4246,7 +4395,9 @@ def fact_parallel_phase(card) -> dict:
             whole = expert_bytes(model)
             del model
             torch.cuda.empty_cache()
-        finish({"gloo": child}, timeout=400)
+        here = {k: v - before[k] for k, v in launch_counts().items()}
+        yield from until_done(child)
+        child.result()
         ranks = [torch.load(os.path.join(gdir, f"rank{r}.pt"),
                             weights_only=False) for r in range(2)]
         gloo = {}
@@ -4273,6 +4424,7 @@ def fact_parallel_phase(card) -> dict:
         if dropped <= FACT_TOL:
             raise AssertionError(f"train-mode logits within {dropped} of "
                                  "eval's: dropout did not act")
+        yield SOLO
         runs = {}
         for n in sorted({1, min(4, torch.cuda.device_count())}):
             nfile = os.path.join(root, f"nccl{n}.json")
@@ -4288,8 +4440,7 @@ def fact_parallel_phase(card) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     children = [r["launches"] for r in ranks] + [
         r["launches"] for r in runs.values()]
-    launches = {k: v - before[k] + sum(c[k] for c in children)
-                for k, v in launch_counts().items()}
+    launches = {k: v + sum(c[k] for c in children) for k, v in here.items()}
     emit({"phase": "fact_parallel", "gloo_two_ranks": gloo,
           "train_vs_eval_logits": dropped,
           "nccl": {str(k): v for k, v in runs.items()},
@@ -4298,12 +4449,183 @@ def fact_parallel_phase(card) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the bench command and the replay accuracy run
+# ---------------------------------------------------------------------------
+
+BENCH_STEPS = 20   # bench.py's default
+# (label, BENCH_* environment, metric, batch, the launches the command
+# implies: an untimed pass and three timed windows of BENCH_STEPS steps,
+# each step one launch of each kernel the model runs, in the step's form)
+BENCH_RUNS = [
+    ("quadtree_train", {}, "quadtree_train_images_per_sec_per_chip", 256,
+     {"quadrant": "training", "fusion_head": "training"}),
+    ("quadtree_infer", {"BENCH_MODE": "infer"},
+     "quadtree_infer_images_per_sec_per_chip", 256,
+     {"quadrant": "inference", "fusion_head": "inference"}),
+    ("quadtree-3d_train", {"BENCH_MODEL": "quadtree-3d"},
+     "quadtree-3d_train_clips_per_sec_per_chip", 8,
+     {"fusion_head": "training"}),
+]
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "batch_size",
+              "baseline_device", "caveat")
+# the replay run: the flagship's published recipe on the replay set; a path
+# that learns nothing scores chance (0.125); JAX's image-only ablation
+# scores 0.50 and its lowest flagship seed 0.895
+REPLAY_MIN_ACCURACY = 0.80
+REPLAY_CAM_IMAGES = 64
+
+
+def bench_phase(card, train_step_ms):
+    """``python -m surya_tpu_torch bench`` as three children, one after the
+    other: ``quadtree`` train at its defaults (batch 256, 20 steps), the
+    same in infer mode, and ``BENCH_MODEL=quadtree-3d``. Each prints one
+    line with ``bench.py``'s keys, a positive rate, the card, and exactly
+    the launches the command implies. → launches per kernel form."""
+    t0 = time.perf_counter()
+    env0 = {k: v for k, v in os.environ.items()
+            if not k.startswith("BENCH_")}
+    rows = []
+    totals = dict.fromkeys(("quadrant", "quadrant_train", "fusion_head",
+                            "fusion_head_train"), 0)
+    for label, env, metric, batch, forms in BENCH_RUNS:
+        t1 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "surya_tpu_torch",
+                              "bench"], cwd=REPO, env={**env0, **env},
+                             capture_output=True, text=True, timeout=600)
+        assert res.returncode == 0, (label, res.stdout[-2000:],
+                                     res.stderr[-4000:])
+        lines = res.stdout.strip().splitlines()
+        assert len(lines) == 1, (label, lines)
+        line = json.loads(lines[0])
+        assert all(k in line for k in BENCH_KEYS), (label, line)
+        assert line["metric"] == metric and line["value"] > 0, line
+        assert line["batch_size"] == batch, line
+        assert line["device"] == card["nvidia_smi"], line
+        n = 4 * BENCH_STEPS
+        want = {k: {"training": 0, "inference": 0}
+                for k in ("quadrant", "fusion_head")}
+        for k, form in forms.items():
+            want[k][form] = n
+        assert line["kernel_launches"] == {
+            **want, "channel_stats": 0, "affine_relu": 0}, (label, line)
+        for k in ("quadrant", "fusion_head"):
+            totals[k] += want[k]["inference"]
+            totals[k + "_train"] += want[k]["training"]
+        rows.append({"run": label, "env": env, "line": line,
+                     "child_s": time.perf_counter() - t1})
+    train = rows[0]["line"]["value"]
+    emit({"phase": "bench", "steps": BENCH_STEPS, "runs": rows,
+          "train_images_per_s": train,
+          "train_phase_step_ms": train_step_ms,
+          "train_phase_images_per_s": TRAIN_BATCH / train_step_ms * 1e3,
+          "launches": totals, "seconds": time.perf_counter() - t0, **card})
+    return totals
+
+
+def replay_data(root):
+    """The replay campaign's ``data`` phase at full width (1,280 JPEGs, 848
+    windows, the three packs) in a child, ``python -m
+    surya_tpu_torch.bench.replay --phase data``, under ``root``. Host work
+    only, so it runs while the kernels build and are checked. → (its
+    record, seconds)."""
+    made = finish({"data": start_child([
+        sys.executable, "-m", "surya_tpu_torch.bench.replay", "--phase",
+        "data", "--root", os.path.join(root, "data"), "--out",
+        os.path.join(root, "out")])}, timeout=600)
+    stdout, seconds = made["data"]
+    print(stdout, end="", file=sys.stderr, flush=True)   # the packs' lines
+    return last_json(stdout), seconds
+
+
+def replay_phase(card, root, data, data_s):
+    """The replay accuracy campaign's seed 0 of ``quadtree-fusion``
+    (``surya_tpu_torch.bench.replay``) on the set :func:`replay_data`
+    wrote under ``root``: the published recipe through the CLI's
+    ``train`` in a child of the campaign's own ``--phase spatial --rows
+    quadtree-fusion --seeds 1`` (10 epochs of 48 steps at batch 16, early
+    stop, best reload). Its test accuracy must reach
+    :data:`REPLAY_MIN_ACCURACY`; its launches are counted exactly from its
+    epochs. Then Grad-CAM on the best checkpoint, card vs CPU end to end
+    at f32, on the first test images and on ``spatial_cam``'s
+    random-normal draw. A side-by-side phase (:func:`side_by_side`): it
+    checks results and times nothing. → launches per kernel form."""
+    import shutil
+
+    from surya_tpu_torch.bench import replay
+    from surya_tpu_torch.core.checkpoint import load_checkpoint_variables
+    from surya_tpu_torch.core.config import get_preset
+
+    t0 = time.perf_counter()
+    try:
+        data_root, out = os.path.join(root, "data"), os.path.join(root, "out")
+        name, preset, run_dir, ov = next(replay.jobs_for("spatial",
+                                                         data_root, 1, out))
+        trained = POOL.submit(finish, {"train": start_child([
+            sys.executable, "-m", "surya_tpu_torch.bench.replay", "--phase",
+            "spatial", "--root", data_root, "--seeds", "1", "--out", out,
+            "--rows", name])}, timeout=900)
+        yield from until_done(trained)
+        print(trained.result()["train"][0], end="", file=sys.stderr,
+              flush=True)   # the row's result line
+        result = replay.load_result(os.path.join(run_dir, "result.json"))
+        assert "test" in result, result
+        accuracy = result["test"]["accuracy"]
+        epochs = epoch_records(run_dir)
+        batches = {s: n // 16 for s, n in data["images"].items()}
+        want = {"training": sum(r["steps"] for r in epochs),
+                "inference": (len(epochs) + 1) * batches["test"]}
+        assert batches["valid"] == batches["test"], batches
+        assert all(r["steps"] == batches["train"] for r in epochs), epochs
+        launches = result["kernel_launches"]
+        assert launches == {"quadrant": want, "fusion_head": want,
+                            "channel_stats": 0, "affine_relu": 0}, launches
+        assert accuracy >= REPLAY_MIN_ACCURACY, result
+
+        t1 = time.perf_counter()
+        cfg = get_preset(preset).override(ov)
+        state = load_checkpoint_variables(replay.best_checkpoint(run_dir))
+        images, feats = replay.test_split_inputs(cfg, REPLAY_CAM_IMAGES)
+        rng = np.random.default_rng(2)
+        normal = (rng.normal(size=(CAM_BATCH, 224, 224, 3)).astype(
+                      np.float32),
+                  rng.normal(size=(CAM_BATCH, 47)).astype(np.float32))
+        cams = {"test_split": replay.cam_errors(cfg.model, state, images,
+                                                feats),
+                "normal_b4": replay.cam_errors(cfg.model, state, *normal)}
+        # layer3's backward crosses layer4, whose ReLU masks move with the
+        # trunk's rounding (ROADMAP §C): reported, not asserted, as in
+        # spatial_cam; trained weights did not close it
+        for inputs in cams.values():
+            assert inputs["layer4"]["within_tol"], cams
+            for target in ("layer3", "layer4"):
+                assert inputs[target]["preds_equal"], cams
+        emit({"phase": "replay", "preset": preset, "seed": 0,
+              "test": result["test"], "best_epoch": result["best_epoch"],
+              "epochs": len(epochs), "min_accuracy": REPLAY_MIN_ACCURACY,
+              "train_wall_s": result["wall_seconds"],
+              "epoch_time_s": [r["epoch_time_s"] for r in epochs],
+              "val_accuracy": [r["val_accuracy"] for r in epochs],
+              "launches": launches, "data_s": data_s,
+              "data": {k: data[k] for k in ("images", "windows", "decoder",
+                                            "pixel_error", "write_s",
+                                            "pack_s")},
+              "cam": {"images": REPLAY_CAM_IMAGES, **cams,
+                      "seconds": time.perf_counter() - t1},
+              "seconds": time.perf_counter() - t0, **card})
+        return {"quadrant": want["inference"], "quadrant_train":
+                want["training"], "fusion_head": want["inference"],
+                "fusion_head_train": want["training"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from surya_tpu_torch.ops.cuda import KERNELS, _build
-    from surya_tpu_torch.ops.cuda import fusion_head, quadrant, stem_bn
+    import shutil
+    import tempfile
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4313,6 +4635,25 @@ def main() -> int:
     emit({"phase": "card", "nvidia_smi": smi, "clocks": clocks(),
           "torch": torch.__version__,
           "cuda": torch.version.cuda, **card})
+
+    # the replay set is written and packed by a child while the kernels
+    # build and are checked: host work only, awaited before anything is
+    # timed
+    replay_root = tempfile.mkdtemp(prefix="surya_replay_")
+    replay_set = POOL.submit(replay_data, replay_root)
+    try:
+        return run_phases(card, replay_root, replay_set)
+    finally:
+        stop_children()
+        shutil.rmtree(replay_root, ignore_errors=True)
+
+
+def run_phases(card, replay_root, replay_set) -> int:
+    """Every phase in turn, then the ``kernels`` line and the result
+    line. The phases that only check results through children run side by
+    side at the end; each stage that times runs alone."""
+    from surya_tpu_torch.ops.cuda import KERNELS, _build
+    from surya_tpu_torch.ops.cuda import fusion_head, quadrant, stem_bn
 
     t0 = time.perf_counter()
     _build.build_all(KERNELS)
@@ -4326,44 +4667,70 @@ def main() -> int:
     check_stem_bn(stem_bn)
     predictor, images, feats, serve_launches = serve_phase(
         quadrant, fusion_head, card)
+    t0 = time.perf_counter()
+    replay_set.result()
+    emit({"phase": "replay_data_wait", "seconds": time.perf_counter() - t0})
     times = time_phase(quadrant, fusion_head, card, hgmma)
     forward_split(predictor, images, feats, card)
     serve_throughput(predictor, images, feats, card)
     del predictor
-    train_launches = train_phase(quadrant, fusion_head, card)
+    train_launches, train_step_ms = train_phase(quadrant, fusion_head, card)
     train_f32_parity(card)
+    torch.cuda.empty_cache()
+    bench_launches = bench_phase(card, train_step_ms)
     augment = augment_phase(card)
     torch.cuda.empty_cache()
-    loop_launches = loop_phase(card, augment)
+    loop = loop_phase(card, augment)
+    next(loop)   # the traced train, alone; the rest runs side by side
     stem_launches, stem_times = stem_probe(stem_bn, card)
     times.update(stem_times)
     torch.cuda.empty_cache()
     spatial_launches, _ = spatial_phase(quadrant, fusion_head, card)
-    if min(spatial_launches.values()) < 1:
-        raise AssertionError(f"a kernel form was never launched on the "
-                             f"spatial path: {spatial_launches}")
     torch.cuda.empty_cache()
     temporal_launches, _ = temporal_phase(quadrant, fusion_head, stem_bn,
                                           card)
+    torch.cuda.empty_cache()
+    pose_launches = pose_phase(quadrant, fusion_head, card)
+    torch.cuda.empty_cache()
+    generate_launches = generate_phase(quadrant, fusion_head, card)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # the longest children first; the phases that pack in this process
+    # before starting theirs last
+    lane = side_by_side({
+        "replay": replay_phase(card, replay_root, *replay_set.result()),
+        "fact_parallel": fact_parallel_phase(card),
+        "loop": loop,
+        "temporal_cli": temporal_cli(card),
+        "spatial_cli": spatial_cli(card),
+        "export": export_phase(quadrant, fusion_head, card),
+        "parallel": parallel_phase(quadrant, fusion_head, card)})
+    emit({"phase": "side_by_side", "phases": list(lane),
+          "seconds": time.perf_counter() - t0, **card})
+    # FACT runs no hand kernel: its launches are reported, none is expected
+    loop_launches, replay_launches = lane["loop"], lane["replay"]
+    export_launches, parallel_launches = lane["export"], lane["parallel"]
+    for k, v in lane["spatial_cli"].items():
+        spatial_launches[k] += v
+    if min(spatial_launches.values()) < 1:
+        raise AssertionError(f"a kernel form was never launched on the "
+                             f"spatial path: {spatial_launches}")
+    for k, v in lane["temporal_cli"].items():
+        temporal_launches[k] = temporal_launches.get(k, 0) + v
+    if (temporal_launches["quadrant"] or temporal_launches["quadrant_train"]
+            or temporal_launches["channel_stats"]
+            or temporal_launches["affine_relu"]):
+        raise AssertionError(f"the temporal path launched a kernel it does "
+                             f"not run: {temporal_launches}")
     if min(temporal_launches["fusion_head"],
            temporal_launches["fusion_head_train"]) < 1:
         raise AssertionError(f"a head form was never launched on the "
                              f"temporal path: {temporal_launches}")
-    torch.cuda.empty_cache()
-    pose_launches = pose_phase(quadrant, fusion_head, card)
-    torch.cuda.empty_cache()
-    export_launches = export_phase(quadrant, fusion_head, card)
-    torch.cuda.empty_cache()
-    generate_launches = generate_phase(quadrant, fusion_head, card)
-    torch.cuda.empty_cache()
-    parallel_launches = parallel_phase(quadrant, fusion_head, card)
     if min(parallel_launches.values()) < 1:
         raise AssertionError(f"a kernel form was never launched on the "
                              f"parallel path: {parallel_launches}")
-    torch.cuda.empty_cache()
-    fact_parallel_phase(card)   # FACT runs no hand kernel: its launches
-                                # are reported, none is expected
 
+    smi, name = card["nvidia_smi"], card["card"]
     # name → (source, replaces, launches on its path, max |kernel - plain|
     # at the shape that path gives it, bf16)
     q_flag, h_flag = tuple(QUADRANT_SHAPES[0]), tuple(HEAD_SHAPES[0])
@@ -4396,32 +4763,42 @@ def main() -> int:
                      "temporal": temporal_launches["quadrant"],
                      "pose": pose_launches["quadrant"],
                      "export": export_launches["quadrant"],
-                     "parallel": parallel_launches["quadrant"]},
+                     "parallel": parallel_launches["quadrant"],
+                     "bench": bench_launches["quadrant"],
+                     "replay": replay_launches["quadrant"]},
         "fusion_head": {"serve": serve_launches["fusion_head"],
                         "loop": loop_launches["fusion_head"]["inference"],
                         "spatial": spatial_launches["fusion_head"],
                         "temporal": temporal_launches["fusion_head"],
                         "pose": pose_launches["fusion_head"],
                         "export": export_launches["fusion_head"],
-                        "parallel": parallel_launches["fusion_head"]},
+                        "parallel": parallel_launches["fusion_head"],
+                        "bench": bench_launches["fusion_head"],
+                        "replay": replay_launches["fusion_head"]},
         "quadrant_train": {"train": train_launches["quadrant"],
                            "loop": loop_launches["quadrant"]["training"],
                            "spatial": spatial_launches["quadrant_train"],
                            "temporal": temporal_launches["quadrant_train"],
-                           "parallel": parallel_launches["quadrant_train"]},
+                           "parallel": parallel_launches["quadrant_train"],
+                           "bench": bench_launches["quadrant_train"],
+                           "replay": replay_launches["quadrant_train"]},
         "fusion_head_train": {
             "train": train_launches["fusion_head"],
             "loop": loop_launches["fusion_head"]["training"],
             "spatial": spatial_launches["fusion_head_train"],
             "temporal": temporal_launches["fusion_head_train"],
             "generate": generate_launches["fusion_head_train"],
-            "parallel": parallel_launches["fusion_head_train"]},
+            "parallel": parallel_launches["fusion_head_train"],
+            "bench": bench_launches["fusion_head_train"],
+            "replay": replay_launches["fusion_head_train"]},
         "channel_stats": {"stem_probe": stem_launches["channel_stats"],
                           "loop": loop_launches["channel_stats"],
-                          "temporal": temporal_launches["channel_stats"]},
+                          "temporal": temporal_launches["channel_stats"],
+                          "bench": 0, "replay": 0},
         "affine_relu": {"stem_probe": stem_launches["affine_relu"],
                         "loop": loop_launches["affine_relu"],
-                        "temporal": temporal_launches["affine_relu"]}}
+                        "temporal": temporal_launches["affine_relu"],
+                        "bench": 0, "replay": 0}}
     kernels = []
     for kname, (source, replaces, launches, check) in table.items():
         if launches < 1:

@@ -22,6 +22,8 @@
       [--input-dtype float32|bfloat16|uint8]
   python -m surya_tpu_torch export-torch CKPT OUT.pth [--preset P]
   python -m surya_tpu_torch check [--device cpu]
+  BENCH_MODEL=quadtree BENCH_MODE=train python -m surya_tpu_torch bench \
+      [--device cpu]
 
 ``train``, ``eval`` and ``compare`` run on a mesh of ranks under
 ``torchrun`` (one process per device; ``--mesh.data``/``--mesh.model``
@@ -38,7 +40,9 @@ the pose net's msgpack artifact (the JAX package's format), which
 serving artifact (``infer.serve.load_exported`` runs it; it needs this
 package where it runs, for the two kernels' operators); ``export-torch``
 writes the reference's own state_dict (``.pth``); ``check`` reports the
-environment and builds every kernel. Everything runs on the card;
+environment and builds every kernel; ``bench`` prints one JSON line of
+train (or infer) throughput, read from ``bench.py``'s ``BENCH_*`` knobs
+(``bench/throughput.py``). Everything runs on the card;
 ``--device cpu`` runs the plain PyTorch path instead (for tests);
 ``ingest`` and ``export-torch`` are host file conversion.
 Dotted ``--section.field=value`` flags override the preset.
@@ -637,6 +641,10 @@ def main(argv: list[str] | None = None) -> int:
         from surya_tpu_torch.data.prep.ingest import main as ingest_main
 
         return ingest_main(rest)
+    if cmd == "bench":
+        from surya_tpu_torch.bench.throughput import main as bench_main
+
+        return bench_main(rest)
     print(f"unknown command {cmd!r}\n{__doc__}")
     return 1
 
