@@ -159,6 +159,113 @@ def test_failed_run_is_an_error_row_and_listed(tmp_path):
     assert table["bands"] == {} and table["vs_jax"] == {}
 
 
+def test_vs_jax_cpu_sets_the_cpu_bands_beside_the_tpu_band(tmp_path):
+    """``diag/<side>`` runs (``tests/replay_diag.py``) become bands beside
+    JAX's TPU band and the port's campaign band (a row cut short has
+    neither, and a run without a test result is left out), and each side
+    is paired seed by seed with JAX's CPU runs and its TPU runs: the
+    accuracy gaps of whole rows and the loss gaps of the epochs both
+    reached, each mean with its standard error."""
+    from replay_diag import vs_jax_cpu
+
+    def write(root, row, seed, acc, losses, **where):
+        d = root / f"{row}_s{seed}"
+        d.mkdir(parents=True)
+        (d / "result.json").write_text(json.dumps(
+            {"preset": row, "base_preset": row.split("-15ep")[0],
+             "seed": seed, "test": {"accuracy": acc}, **where}))
+        (d / "metrics.jsonl").write_text("".join(
+            json.dumps({"epoch": e, "train_loss": t, "val_loss": v}) + "\n"
+            for e, (t, v) in enumerate(losses)))
+
+    diag, tpu_runs = tmp_path / "diag", tmp_path / "tpu"
+    for seed, (j, p) in enumerate([(0.87, 0.86), (0.86, 0.88),
+                                   (0.87, 0.88)]):
+        write(diag / "jax_cpu", "experiment-fusion", seed, j,
+              [(2.0, 1.9), (1.5, 1.4)], host="cpu x8")
+        write(diag / "port_cpu", "experiment-fusion", seed, p,
+              [(2.0 + seed / 10, 1.9), (1.6, 1.4)], host="cpu x8")
+        write(diag / "port_card_jaxinit", "experiment-fusion", seed, 0.9,
+              [(2.0, 1.9)], nvidia_smi="H100, 700 W")
+        write(tpu_runs / "spatial", "experiment-fusion", seed, 0.9,
+              [(1.9, 1.8), (1.4, 1.3), (1.0, 1.0)])
+    write(diag / "jax_cpu", "ji-3dcnn-15ep", 0, 0.5, [(2.0, 1.9)],
+          host="cpu x8")
+    write(diag / "port_cpu", "ji-3dcnn-15ep", 0, 0.4, [(2.1, 2.0)],
+          host="cpu x8")
+    write(diag / "port_card_jaxdraws", "ji-3dcnn", 0, 0.7,
+          [(2.05, 1.95), (1.5, 1.4)], nvidia_smi="H100, 700 W")
+    write(diag / "port_card_jaxinit", "ji-3dcnn", 0, 0.75,
+          [(2.0, 1.9), (1.5, 1.5)], nvidia_smi="H100, 700 W")
+    write(tpu_runs / "temporal", "ji-3dcnn", 0, 0.8, [(1.8, 1.7)])
+    (diag / "jax_cpu" / "broken_s0").mkdir()
+    (diag / "jax_cpu" / "broken_s0" / "result.json").write_text(
+        json.dumps({"preset": "broken", "seed": 0, "error": "exit 1"}))
+    tpu = {"experiment-fusion": {"mean": 0.897, "std": 0.010,
+                                 "accs": [0.9]}}
+    card = {"experiment-fusion": {"mean": 0.863, "std": 0.013,
+                                  "accs": [0.86]}}
+    block = vs_jax_cpu(str(diag), tpu, card, str(tpu_runs))
+    assert block["sources"] == ["H100, 700 W", "cpu x8"]
+    assert sorted(block["bands"]) == ["experiment-fusion", "ji-3dcnn",
+                                      "ji-3dcnn-15ep"]
+    row = block["bands"]["experiment-fusion"]
+    assert row["jax_cpu"]["accs"] == [0.87, 0.86, 0.87]
+    assert row["port_cpu"]["accs"] == [0.86, 0.88, 0.88]
+    assert row["jax_tpu"]["mean"] == 0.897
+    assert row["port_campaign"]["mean"] == 0.863
+    assert row["jax_cpu_overlaps_jax_tpu"] is False
+    assert row["jax_cpu_overlaps_port_campaign"] is True
+    assert row["port_cpu_overlaps_jax_tpu"] is False
+    assert row["port_card_jaxinit_overlaps_jax_tpu"] is True
+    short = block["bands"]["ji-3dcnn-15ep"]
+    assert short["jax_tpu"] is None and short["port_campaign"] is None
+    assert short["jax_cpu_overlaps_jax_tpu"] is None
+
+    pairs = block["paired"]["experiment-fusion"]
+    assert pairs.pop("base") == "experiment-fusion"
+    assert sorted(pairs) == [
+        "jax_cpu - jax_tpu", "port_card_jaxinit - jax_cpu",
+        "port_card_jaxinit - jax_tpu", "port_cpu - jax_cpu",
+        "port_cpu - jax_tpu"]
+    port = pairs["port_cpu - jax_cpu"]
+    assert port["seeds"] == [0, 1, 2]
+    np.testing.assert_allclose(port["test_accuracy"]["gaps"],
+                               [-0.01, 0.02, 0.01])
+    np.testing.assert_allclose(port["test_accuracy"]["mean"], 0.02 / 3)
+    np.testing.assert_allclose(port["test_accuracy"]["se"],
+                               np.std([-0.01, 0.02, 0.01], ddof=1)
+                               / np.sqrt(3))
+    np.testing.assert_allclose(port["train_loss"]["mean_gap"], [0.1, 0.1])
+    np.testing.assert_allclose(port["train_loss"]["se"], [0.05774, 0.0],
+                               atol=1e-5)
+    assert port["val_loss"]["mean_gap"] == [0.0, 0.0]
+    # the epochs both reached; whole rows only for the accuracy
+    assert len(pairs["port_card_jaxinit - jax_cpu"]["val_loss"][
+        "mean_gap"]) == 1
+    np.testing.assert_allclose(
+        pairs["jax_cpu - jax_tpu"]["val_loss"]["mean_gap"], [0.1, 0.1])
+    # a cut row pairs with whole rows over the epochs both reached; the
+    # accuracy only with runs of the same cut
+    cut = block["paired"]["ji-3dcnn"]
+    assert "test_accuracy" not in cut["jax_cpu - jax_tpu"]
+    whole = cut["port_card_jaxdraws - jax_cpu"]
+    assert "test_accuracy" not in whole
+    np.testing.assert_allclose(whole["val_loss"]["mean_gap"], [0.05])
+    np.testing.assert_allclose(cut["port_card_jaxdraws - jax_tpu"][
+        "test_accuracy"]["gaps"], [-0.1])
+    draws = cut["port_card_jaxinit - port_card_jaxdraws"]
+    np.testing.assert_allclose(draws["test_accuracy"]["gaps"], [0.05])
+    np.testing.assert_allclose(draws["val_loss"]["mean_gap"], [-0.05, 0.1])
+    np.testing.assert_allclose(cut["port_cpu - jax_cpu"]["test_accuracy"][
+        "gaps"], [-0.1])
+    assert cut["port_cpu - jax_cpu"]["test_accuracy"]["se"] is None
+    np.testing.assert_allclose(cut["port_cpu - jax_tpu"]["val_loss"][
+        "mean_gap"], [0.3])
+    assert vs_jax_cpu(str(tmp_path / "none"), tpu, card, str(tpu_runs)) \
+        == {"sources": [], "bands": {}, "paired": {}}
+
+
 def test_layer4_relu_inputs_are_counted():
     from surya_tpu_torch.core.config import ModelConfig
     from surya_tpu_torch.interpret.gradcam import cam_model, cam_split
