@@ -45,6 +45,7 @@ full-size rows through both CLIs.
 """
 
 import functools
+import hashlib
 import json
 
 import numpy as np
@@ -58,6 +59,7 @@ import jax.numpy as jnp
 from surya_tpu.core import config as jcfg
 from surya_tpu.core.metrics import MetricsLogger as JLogger
 from surya_tpu.core.prng import PRNG as JPRNG
+from surya_tpu.data import augment as jaug
 from surya_tpu.data.packed import PackedDataSource as JPacked
 from surya_tpu.data.packed import PackedSequenceSource as JPackedSeq
 from surya_tpu.train import loop as jloop
@@ -77,6 +79,7 @@ from surya_tpu_torch.data.replay import (
     make_replay_temporal,
 )
 from surya_tpu_torch.data.sequences import write_windows
+from surya_tpu_torch.models import TEMPORAL_MODELS
 from surya_tpu_torch.models import common as tcommon
 from surya_tpu_torch.models import get_model
 from surya_tpu_torch.models.from_jax import from_jax_variables
@@ -92,6 +95,8 @@ CLASSES = [f"pose_{i}" for i in range(8)]
 SPLIT_SEEDS = {"train": 0, "valid": 1, "test": 2}
 # per class: train, valid, test
 COUNTS = {"train": 4, "valid": 2, "test": 2}
+# presets trained on the sequence pack
+SEQUENCE_PRESETS = ("ji-3dcnn", "resnet3d-video")
 
 
 @pytest.fixture(scope="module")
@@ -118,7 +123,7 @@ def _configs(preset, packs, seed, **extra):
     ov = {"model.compute_dtype": "float32", "train.epochs": str(EPOCHS),
           "train.seed": str(seed), "train.early_stop_patience": "0",
           "data.batch_size": "16", "train.checkpoint_dir": "unused"}
-    if preset == "ji-3dcnn":
+    if preset in SEQUENCE_PRESETS:
         ov.update({"data.seq_root": str(packs / "temporal"),
                    "data.packed_dir": str(packs / "temporal_packed"),
                    "data.image_size": "32"})
@@ -133,7 +138,7 @@ def _configs(preset, packs, seed, **extra):
 
 
 def _sources(cfg, ref, seed):
-    if cfg.model.name == "ji_3dcnn":
+    if cfg.model.name in TEMPORAL_MODELS:
         return (PackedSequenceSource(cfg.data, seed=seed),
                 JPackedSeq(ref.data, seed=seed))
     return (PackedDataSource(cfg.data, seed=seed),
@@ -278,32 +283,77 @@ def run_coupled(cfg, ref, pdata, jdata, mesh, monkeypatch):
     return got, want, masks
 
 
-@pytest.mark.parametrize("preset", ["experiment-fusion", "ji-3dcnn"])
-def test_port_fed_jax_draws_tracks_jax_loop(preset, packs, mesh1,
-                                            monkeypatch):
-    """Arm (a): dropout and augmentation on, the port fed JAX's draws."""
-    cfg, ref = _configs(preset, packs, seed=0)
+def eager_jax_augment(monkeypatch, memo=None):
+    """JAX's ``augment_batch`` run eagerly, the function as written. Under
+    ``jit`` XLA on the CPU recomputes the bilinear sample inside the hue
+    conversion and gets some pixels' hue wrong (``test_torch_augment.py``);
+    a trunk that trains turns those pixels into a train-loss gap. Eager
+    dispatch costs seconds a call: with a ``memo`` dict each output is
+    kept there by (key, images, options), for cases that draw the same
+    keys over the same batches."""
+    real = jaug.augment_batch
+
+    def eager(key, images, **kw):
+        at = None
+        if memo is not None:
+            host = np.asarray(images)
+            at = (np.asarray(jax.random.key_data(key)).tobytes(), host.shape,
+                  hashlib.sha256(host.tobytes()).hexdigest(),
+                  tuple(sorted(kw.items())))
+            if at in memo:
+                return memo[at]
+        with jax.disable_jit():
+            out = real(key, images, **kw)
+        if at is not None:
+            memo[at] = out
+        return out
+
+    monkeypatch.setattr(jaug, "augment_batch", eager)
+
+
+def check_shared_draws(preset, packs, mesh, monkeypatch, mlp_masks,
+                       **extra):
+    """Arm (a) for ``preset`` (with the config overrides ``extra``):
+    every step drew a head mask, and ``mlp_masks`` numerical-MLP masks;
+    per-epoch train and validation losses and the test loss within
+    ``RTOL``."""
+    cfg, ref = _configs(preset, packs, seed=0, **extra)
     assert cfg.model.dropout is None   # the families' own rates, not 0
     pdata, jdata = _sources(cfg, ref, 0)
-    got, want, masks = run_coupled(cfg, ref, pdata, jdata, mesh1,
+    got, want, masks = run_coupled(cfg, ref, pdata, jdata, mesh,
                                    monkeypatch)
     assert len(masks) == EPOCHS * len(list(jdata.train_batches(1)))
     # every step drew a head mask with units dropped and kept
     heads = np.stack([m["head"] for m in masks])
     assert 0.2 < heads.mean() < 0.6
-    if preset == "experiment-fusion":
-        assert all(len(m["mlp"]) == 1 for m in masks)
+    assert all(len(m["mlp"]) == mlp_masks for m in masks)
+    # the stand-ins that ``replay_diag.py --jax-masks`` draws from: each
+    # keeps every unit JAX kept (and the ReLU passed), and half of all
+    sites = [("classifier", heads)]
+    if mlp_masks:
         assert ref.data.augment
-    else:
-        # the stand-in that ``replay_diag.py --jax-masks`` draws from: it
-        # keeps every unit JAX kept (and the ReLU passed), and half of all
-        drawn = head_masks(JPRNG(0), len(masks), *heads.shape[1:], 0.5)
-        assert not (heads & ~drawn).any() and 0.45 < drawn.mean() < 0.55
+        if cfg.model.name == "standard_multimodal":
+            sites.append(("numerical_mlp",
+                          np.stack([m["mlp"][0] for m in masks])))
+    for site, kept in sites:
+        drawn = head_masks(JPRNG(0), len(masks), *kept.shape[1:], 0.5,
+                           module=site)
+        assert not (kept & ~drawn).any() and 0.45 < drawn.mean() < 0.55
     g, w = _losses(got), _losses(want)
     assert g.shape == w.shape == (EPOCHS, 2)
+    print(json.dumps({"arm": "a", "preset": preset, **extra,
+                      "max_rel": float(np.max(np.abs(g - w) / w))}))
     np.testing.assert_allclose(g, w, rtol=RTOL)
     np.testing.assert_allclose(got["test"]["loss"], want["test"]["loss"],
                                rtol=RTOL)
+
+
+@pytest.mark.parametrize("preset", ["experiment-fusion", "ji-3dcnn"])
+def test_port_fed_jax_draws_tracks_jax_loop(preset, packs, mesh1,
+                                            monkeypatch):
+    """Arm (a): dropout and augmentation on, the port fed JAX's draws."""
+    check_shared_draws(preset, packs, mesh1, monkeypatch,
+                       mlp_masks=int(preset == "experiment-fusion"))
 
 
 # --- arm (b): each framework's own draws -------------------------------------

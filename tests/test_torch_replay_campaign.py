@@ -211,6 +211,8 @@ def test_vs_jax_cpu_sets_the_cpu_bands_beside_the_tpu_band(tmp_path):
                                       "ji-3dcnn-15ep"]
     row = block["bands"]["experiment-fusion"]
     assert row["jax_cpu"]["accs"] == [0.87, 0.86, 0.87]
+    assert row["jax_cpu"]["stop_epochs"] == [1, 1, 1]
+    assert row["port_card_jaxinit"]["stop_epochs"] == [0, 0, 0]
     assert row["port_cpu"]["accs"] == [0.86, 0.88, 0.88]
     assert row["jax_tpu"]["mean"] == 0.897
     assert row["port_campaign"]["mean"] == 0.863
@@ -237,6 +239,11 @@ def test_vs_jax_cpu_sets_the_cpu_bands_beside_the_tpu_band(tmp_path):
                                np.std([-0.01, 0.02, 0.01], ddof=1)
                                / np.sqrt(3))
     np.testing.assert_allclose(port["train_loss"]["mean_gap"], [0.1, 0.1])
+    # seed 0 +0.05, seeds 1 and 2 +0.1 and +0.15 averaged over the epochs
+    np.testing.assert_allclose(port["train_loss"]["seed_mean"], 0.1)
+    np.testing.assert_allclose(port["train_loss"]["seed_mean_se"],
+                               np.std([0.05, 0.1, 0.15], ddof=1)
+                               / np.sqrt(3), atol=1e-5)
     np.testing.assert_allclose(port["train_loss"]["se"], [0.05774, 0.0],
                                atol=1e-5)
     assert port["val_loss"]["mean_gap"] == [0.0, 0.0]
@@ -264,6 +271,67 @@ def test_vs_jax_cpu_sets_the_cpu_bands_beside_the_tpu_band(tmp_path):
         "mean_gap"], [0.3])
     assert vs_jax_cpu(str(tmp_path / "none"), tpu, card, str(tpu_runs)) \
         == {"sources": [], "bands": {}, "paired": {}}
+
+
+def test_vs_jax_cpu_pairs_a_variant_with_its_own_tpu_row(tmp_path):
+    """A ``--set``/``--tag`` variant that JAX's replay ran as a row of its
+    own (``resnet3d-video`` with ``model.freeze_backbone=false`` is
+    ``resnet3d-video-trainable``) pairs with that row's TPU runs, not with
+    its preset's."""
+    from replay_diag import vs_jax_cpu
+
+    def write(root, row, acc, val, base):
+        d = root / f"{row}_s0"
+        d.mkdir(parents=True)
+        (d / "result.json").write_text(json.dumps(
+            {"preset": row, "base_preset": base, "seed": 0,
+             "test": {"accuracy": acc}, "host": "cpu x8"}))
+        (d / "metrics.jsonl").write_text(json.dumps(
+            {"epoch": 0, "train_loss": 2.0, "val_loss": val}) + "\n")
+
+    diag, tpu_runs = tmp_path / "diag", tmp_path / "tpu"
+    row, base = "resnet3d-video-trainable", "resnet3d-video"
+    write(diag / "port_card", row, 0.45, 1.5, base)
+    write(tpu_runs / "temporal", base, 0.7, 1.0, base)
+    write(tpu_runs / "temporal", row, 0.5, 1.25, base)
+    pair = vs_jax_cpu(str(diag), {}, {}, str(tpu_runs))["paired"][row][
+        "port_card - jax_tpu"]
+    np.testing.assert_allclose(pair["test_accuracy"]["gaps"], [-0.05])
+    np.testing.assert_allclose(pair["val_loss"]["mean_gap"], [0.25])
+
+
+def test_vs_jax_cpu_pairs_the_plain_head_with_the_kernel(tmp_path):
+    """A ``_plainhead`` side pairs with the side it suffixes (the same
+    weights and draws, the head's arithmetic alone) and, as every side,
+    with JAX's TPU runs; a ``_jaxinit`` side still pairs with its
+    ``_jaxdraws`` side."""
+    from replay_diag import vs_jax_cpu
+
+    def write(root, seed, acc, val, row="comparative-vgg16"):
+        d = root / f"{row}_s{seed}"
+        d.mkdir(parents=True)
+        (d / "result.json").write_text(json.dumps(
+            {"preset": row, "base_preset": row, "seed": seed,
+             "test": {"accuracy": acc}, "nvidia_smi": "H100, 700.00 W"}))
+        (d / "metrics.jsonl").write_text(json.dumps(
+            {"epoch": 0, "train_loss": 1.0, "val_loss": val}) + "\n")
+
+    diag, tpu_runs = tmp_path / "diag", tmp_path / "tpu"
+    for seed, (kernel, plain, draws) in enumerate(
+            [(0.90, 0.92, 0.91), (0.91, 0.92, 0.93)]):
+        write(diag / "port_card_jaxinit", seed, kernel, 0.5)
+        write(diag / "port_card_jaxinit_plainhead", seed, plain, 0.4)
+        write(diag / "port_card_jaxdraws", seed, draws, 0.45)
+        write(tpu_runs / "spatial", seed, 0.94, 0.3)
+    block = vs_jax_cpu(str(diag), {}, {}, str(tpu_runs))["paired"][
+        "comparative-vgg16"]
+    plain = block["port_card_jaxinit_plainhead - port_card_jaxinit"]
+    np.testing.assert_allclose(plain["test_accuracy"]["gaps"], [0.02, 0.01])
+    np.testing.assert_allclose(plain["val_loss"]["mean_gap"], [-0.1])
+    own = block["port_card_jaxinit - port_card_jaxdraws"]
+    np.testing.assert_allclose(own["test_accuracy"]["gaps"], [-0.01, -0.02])
+    assert "port_card_jaxinit_plainhead - jax_tpu" in block
+    assert not any(k.startswith("port_card_jaxdraws - port") for k in block)
 
 
 def test_layer4_relu_inputs_are_counted():
