@@ -2520,16 +2520,17 @@ def hold_recorded(calls, quadrant, fusion_head):
     return held
 
 
-def _hold(name, seen, plain, failed, train=False):
+def _hold(name, seen, plain, failed, train=False, dtype=torch.bfloat16):
     row = {"calls": len(seen), "max_abs_err": 0.0, "max_rel_err": 0.0}
     form = "training" if train else "inference"
     for args, kw, out in seen:
         x = args[0]
         dname = str(x.dtype).removeprefix("torch.")
         row.update(shape=list(x.shape), dtype=dname, tol=TOL[dname])
-        if not (x.is_cuda and out.is_cuda and x.dtype == torch.bfloat16
+        if not (x.is_cuda and out.is_cuda and x.dtype == dtype
                 and bool(kw.get("rate")) == train):
-            failed.append((name, f"not the bf16 {form} form on the card"))
+            failed.append((name, f"not the {dtype} {form} form on the "
+                                 "card"))
         err, rel = compare(out, plain(*args, **kw))
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["max_rel_err"] = max(row["max_rel_err"], rel)
@@ -3692,7 +3693,7 @@ def parallel_config(spec: dict):
 
     return get_preset("quadtree-fusion").override({
         "model.compute_dtype": spec["dtype"],
-        **({"train.fsdp": "true"} if spec.get("fsdp") else {})})
+        **{f"train.{k}": "true" for k in ("zero1", "fsdp") if spec.get(k)}})
 
 
 def parallel_step(spec: dict, mesh=None, record=False) -> dict:
@@ -3738,19 +3739,22 @@ def parallel_step(spec: dict, mesh=None, record=False) -> dict:
                 "quadrant_train": quadrant.training_launches,
                 "fusion_head": fusion_head.launches,
                 "fusion_head_train": fusion_head.training_launches}
-    held = hold_parallel(calls, quadrant, fusion_head) if record else None
-    snap = snapshot(state)
+    snap = snapshot(state)   # a collective on a mesh: before the holds
+    held = (hold_parallel(calls, quadrant, fusion_head,
+                          getattr(torch, spec["dtype"])) if record else None)
     return {"logits": logits.cpu(), "loss": loss,
+            "rows": None if rows is None else rows.spans,
             "accuracy": float(metrics["accuracy"]), "model": snap["model"],
             "optimizer": snap["optimizer"],
             "launches": launches, "held": held, "step_s": step_s}
 
 
-def hold_parallel(calls, quadrant, fusion_head):
+def hold_parallel(calls, quadrant, fusion_head, dtype=torch.bfloat16):
     """Every kept kernel call of a parallel run against its plain version
     on its own inputs (the head's dropout mask rebuilt from the call's
-    seed and row offset), to TOL of its dtype: bf16 on the card, and every
-    head call with dropout 0.5 (a train-mode forward and the step)."""
+    seed and row offset), to TOL of its dtype: ``dtype`` on the card, and
+    every head call with dropout 0.5 (a train-mode forward and the
+    step)."""
     def head_plain(x, w1, b1, w2, b2, *, rate, seed, row_offset=0):
         keep = (fusion_head.philox_bits(
             int(seed.reshape(-1)[0]), x.shape[0], w1.shape[0], x.device,
@@ -3766,9 +3770,10 @@ def hold_parallel(calls, quadrant, fusion_head):
     failed = []
     with torch.inference_mode():
         held = {"quadrant": _hold("quadrant", calls["quadrant"],
-                                  quadrant_plain, failed),
+                                  quadrant_plain, failed, dtype=dtype),
                 "fusion_head": _hold("fusion_head", calls["fusion_head"],
-                                     head_plain, failed, train=True)}
+                                     head_plain, failed, train=True,
+                                     dtype=dtype)}
     if failed or not all(row["calls"] for row in held.values()):
         raise AssertionError(f"parallel kernel holds: {held} {failed}")
     return held
@@ -3896,6 +3901,432 @@ def parallel_nccl_child(out_file: str) -> None:
     dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# parallel over cards: the flagship's forms over NCCL, one card a rank
+# ---------------------------------------------------------------------------
+
+# the forms of __graft_entry__.py's dryrun_multichip: name → (ranks, mesh
+# axes, ZeRO form); each runs in bf16 at global batch PARALLEL_BATCH and in
+# f32 (TF32 off) at PARALLEL_F32_BATCH
+PARALLEL_CARD_FORMS = {
+    "dp2": (2, {"data": 2}, None),
+    "dp4": (4, {"data": 4}, None),
+    "dp2tp2": (4, {"data": 2, "model": 2}, None),
+    "zero1_dp4": (4, {"data": 4}, "zero1"),
+    "fsdp_dp4": (4, {"data": 4}, "fsdp"),
+    "zero1_dp2tp2": (4, {"data": 2, "model": 2}, "zero1"),
+    "fsdp_dp2tp2": (4, {"data": 2, "model": 2}, "fsdp")}
+PREDICT_IMAGES = 128   # (c): one request served over dpN, bf16 (TOL)
+COST_STEPS = 20        # a timed run: the median of steps 4-20
+
+
+def card_worlds() -> list:
+    """The NCCL jobs the cards allow, one card a rank: 2 ranks, and 4 on a
+    machine of four or more cards."""
+    return [w for w in (2, 4) if w <= torch.cuda.device_count()]
+
+
+def _in_step(world: int) -> None:
+    """Before a timed rep over several ranks: every rank's card idle and
+    every rank there (a barrier), so no rank's time holds another's lag."""
+    if world > 1:
+        import torch.distributed as dist
+
+        torch.cuda.synchronize()
+        dist.barrier()
+
+
+def step_ms(fn, steps=COST_STEPS, world=1) -> dict:
+    """``steps`` calls of ``fn``, each timed by CUDA events after
+    :func:`_in_step` → the median of steps 4 on, and every step's ms."""
+    ms = []
+    for _ in range(steps):
+        _in_step(world)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return {"median": statistics.median(ms[3:]), "ms": ms}
+
+
+def step_profile(fn, steps=5, world=1) -> dict:
+    """``steps`` calls of ``fn`` under the profiler (each after
+    :func:`_in_step`) → a step's wall ms (host clock, the card synchronised)
+    and the card's ms a step: busy (the union of its device intervals),
+    in NCCL's kernels (their union: they spin while a peer is late) and
+    in the others; the idle, NCCL and other shares of the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    wall = 0.0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            _in_step(world)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA
+              and not e.is_user_annotation()]
+
+    def union(evs):
+        return busy_ms(sorted((e.start_ns(), e.end_ns()) for e in evs))
+
+    nccl = [e for e in events if "nccl" in e.name().lower()]
+    out = {"wall_ms": 1e3 * wall / steps, "busy_ms": union(events) / steps,
+           "nccl_ms": union(nccl) / steps,
+           "other_ms": union([e for e in events if e not in nccl]) / steps}
+    if not out["busy_ms"] > 0:
+        raise AssertionError("the profiler recorded no device time")
+    for k in ("busy", "nccl", "other"):
+        out[f"{k}_share"] = out[f"{k}_ms"] / out["wall_ms"]
+    out["idle_share"] = max(0.0, 1 - out["busy_share"])
+    return out
+
+
+def dp_costs(world: int) -> dict:
+    """What the bf16 DP step of the flagship costs on this job's ``world``
+    (≥ 2) cards, as this rank sees it: the step at global batch 256 and
+    at 256 a card (:func:`step_ms`); the wall, busy, NCCL and idle shares
+    of a profiled step at 256 (:func:`step_profile`); the bytes this rank
+    hands to ``all_reduce`` in a step; forward + backward with the
+    global-batch BN against the fused BN of this rank's rows alone, in
+    turns; at four ranks, peak memory of two steps with plain DP, ZeRO-1
+    and FSDP2, and the dp2×tp2 step. One card's step is the ``train``
+    phase's (the DP step at one rank is the plain one: ``nccl_one_rank``'s
+    ``step_ms``)."""
+    import gc
+
+    from surya_tpu_torch.core import mesh as cmesh
+    from surya_tpu_torch.models import get_model
+    from surya_tpu_torch.models.losses import cross_entropy
+    from surya_tpu_torch.train import create_train_state, make_train_step
+
+    spec = parallel_spec("bfloat16", PARALLEL_BATCH, {})
+    cfg = parallel_config(spec)
+    full = train_batch(cfg, PARALLEL_BATCH * world, seed=5)
+
+    def rows_of(mesh, n):   # this rank's rows of the first n of `full`
+        return tuple(torch.from_numpy(a).cuda() for a in cmesh.shard_batch(
+            mesh, tuple(a[:n] for a in full)))
+
+    def build(c, mesh):
+        model = get_model(c.model, image_size=c.data.image_size, seed=0)
+        state, tx = create_train_state(model, c, mesh=mesh)
+        return model, state, make_train_step(model, tx, c, mesh=mesh)
+
+    dp = cmesh.create_mesh(cmesh.MeshSpec(data=world), "cuda")
+    model, state, step = build(cfg, dp)
+    batch = rows_of(dp, PARALLEL_BATCH)
+    big = rows_of(dp, PARALLEL_BATCH * world)
+    out = {"rows": len(batch[2]),
+           "step_ms_global_256": step_ms(lambda: step(state, batch),
+                                         world=world),
+           "step_ms_256_a_card": step_ms(lambda: step(state, big),
+                                         world=world)}
+    del big
+    before = cmesh.collective_bytes["all_reduce"]
+    step(state, batch)
+    out["all_reduce_bytes_per_step"] = (cmesh.collective_bytes["all_reduce"]
+                                        - before)
+    out["profile"] = step_profile(lambda: step(state, batch), world=world)
+    median = out["step_ms_global_256"]["median"]
+
+    model.train()
+    rows = dp.row_shard(PARALLEL_BATCH)
+
+    def fwd_bwd(r):
+        state.optimizer.zero_grad(set_to_none=True)
+        with cmesh.batch_rows(r):
+            cross_entropy(model(batch[0], batch[1], state.generator),
+                          batch[2]).backward()
+
+    bn = {"fused_local": [], "global": []}
+    for _ in range(3):   # in turns
+        for name, r in (("fused_local", None), ("global", rows)):
+            bn[name].append(step_ms(lambda: fwd_bwd(r), steps=8,
+                                    world=world)["median"])
+    bn = {k: statistics.median(v) for k, v in bn.items()}
+    out["fwd_bwd_ms"] = {**bn, "global_bn_share_of_step": (
+        bn["global"] - bn["fused_local"]) / median}
+    del model, state, step, batch
+    peaks = {}
+    for name in ("dp", "zero1", "fsdp") if world == 4 else ():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        c = parallel_config({**spec, name: name != "dp"})
+        model, state, step = build(c, dp)
+        batch = rows_of(dp, PARALLEL_BATCH)
+        for _ in range(2):
+            step(state, batch)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+        del model, state, step, batch
+    out["peak_memory_bytes"] = peaks
+    if world == 4:
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = cmesh.create_mesh(cmesh.MeshSpec(data=2, model=2), "cuda")
+        model, state, step = build(cfg, mesh)
+        batch = rows_of(mesh, PARALLEL_BATCH)
+        out["dp2tp2_step_ms_global_256"] = step_ms(
+            lambda: step(state, batch), world=world)
+        del model, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _predict_over_cards(world: int) -> dict:
+    """(c) The flagship from seed 0 served over a dp``world`` mesh
+    (``Predictor(mesh=)``, bf16 weights, uint8 wire, batch 64): every rank
+    returns the whole request's probabilities; rank 0 holds them against
+    one card's ``Predictor`` (TOL of bf16, relative to the largest)."""
+    import torch.distributed as dist
+
+    from surya_tpu_torch.core import mesh as cmesh
+    from surya_tpu_torch.infer.serve import Predictor
+    from surya_tpu_torch.models import get_model
+
+    cfg = parallel_config(parallel_spec("bfloat16", 0, {}))
+    size = cfg.data.image_size
+    sd = get_model(cfg.model, image_size=size, seed=0).state_dict()
+    rng = np.random.default_rng(7)
+    images = rng.integers(0, 256, (PREDICT_IMAGES, size, size, 3), np.uint8)
+    feats = rng.normal(size=(PREDICT_IMAGES, 47)).astype(np.float32)
+    kw = dict(batch_size=64, image_size=size, param_dtype=torch.bfloat16,
+              input_dtype="uint8")
+    mesh = cmesh.create_mesh(cmesh.MeshSpec(data=world), "cuda")
+    preds, probs = Predictor(cfg.model, sd, mesh=mesh, **kw).predict(
+        images, feats)
+    out = None
+    if dist.get_rank() == 0:   # the reference's launches are not the path's
+        from surya_tpu_torch.ops.cuda import fusion_head, quadrant
+
+        counts = (quadrant.launches, fusion_head.launches)
+        want_preds, want = Predictor(cfg.model, sd, **kw).predict(images,
+                                                                  feats)
+        quadrant.launches, fusion_head.launches = counts
+        err, rel = compare(torch.from_numpy(probs), torch.from_numpy(want))
+        out = {"images": PREDICT_IMAGES, "max_abs_err": err,
+               "max_rel_err": rel, "tol": TOL["bfloat16"],
+               "preds_agree": float((preds == want_preds).mean()),
+               "shape": list(probs.shape)}
+    dist.barrier()
+    return out
+
+
+def parallel_card_child(out_file: str) -> None:
+    """One NCCL rank a card (``torchrun --nproc-per-node=W``, W 2 or 4).
+    (a) Rank 0 first takes the one-process step on its card for each
+    dtype; then every rank runs each form of ``PARALLEL_CARD_FORMS`` of W
+    ranks (:func:`parallel_step`: a train-mode forward and one step, every
+    kernel call held against its plain version), and rank 0 holds the
+    gathered state, the loss and every rank's logits against the
+    one-process step. (c) At the largest W the cards allow,
+    :func:`_predict_over_cards`. Then :func:`dp_costs`. Rank 0 writes the
+    record; a form that fails is recorded and the child goes on, then
+    exits 1."""
+    from surya_tpu_torch.core import mesh as cmesh
+    from surya_tpu_torch.models import get_model
+    from surya_tpu_torch.train.steps import trainable_mask
+
+    os.environ.update(NCCL_DEBUG="INFO",
+                      NCCL_DEBUG_SUBSYS="INIT,P2P,SHM,NET",
+                      NCCL_DEBUG_FILE=f"{out_file}.nccl.%p")
+    dist = _fact_child_setup("nccl")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    specs = {"bfloat16": parallel_spec("bfloat16", PARALLEL_BATCH, {}),
+             "float32": parallel_spec("float32", PARALLEL_F32_BATCH, {})}
+    refs = {d: parallel_step(s) for d, s in specs.items()} if rank == 0 \
+        else {}
+    cfg = parallel_config(specs["bfloat16"])
+    names = [n for n, t in trainable_mask(
+        get_model(cfg.model, image_size=64), cfg.model.name,
+        cfg.model.freeze_backbone).items() if t]
+    dist.barrier()
+    # this rank's launches on the path (the references' are not):
+    # parallel_step counts each form's from 0
+    tally = dict.fromkeys(launch_counts(), 0)
+    out = {"backend": dist.get_backend(), "world": world, "forms": {},
+           "failed": []}
+    meshes = {}
+    for name, (ranks, axes, zero) in PARALLEL_CARD_FORMS.items():
+        if ranks != world:
+            continue
+        key = tuple(axes.items())
+        if key not in meshes:
+            meshes[key] = cmesh.create_mesh(cmesh.MeshSpec(**axes), "cuda")
+        for dtype, spec in specs.items():
+            label = f"{name}_{'bf16' if dtype == 'bfloat16' else 'f32'}"
+            moved0 = dict(cmesh.collective_bytes)
+            got, fault = None, None
+            try:
+                got = parallel_step({**spec, "mesh": axes,
+                                     **({zero: True} if zero else {})},
+                                    meshes[key], record=True)
+            except AssertionError as e:   # a kernel call that did not hold
+                fault = str(e)[:2000]
+            mine = {"fault": fault,
+                    "bytes": {k: cmesh.collective_bytes[k] - moved0[k]
+                              for k in moved0}}
+            if got is not None:
+                mine.update({k: got[k] for k in ("logits", "rows", "held",
+                                                 "launches", "loss")})
+                for k in ("quadrant", "fusion_head"):
+                    n, t = got["launches"][k], got["launches"][f"{k}_train"]
+                    tally[k] += n - t
+                    tally[f"{k}_train"] += t
+            every = [None] * world
+            dist.all_gather_object(every, mine)
+            if rank == 0:
+                out["forms"][label] = row = _card_form_row(
+                    got, every, refs[dtype], names, cfg.train.lr)
+                if row["faults"] or parallel_failed(row, dtype):
+                    out["failed"].append(label)
+            del got
+            torch.cuda.empty_cache()
+    before = launch_counts()
+    if world == max(card_worlds()):
+        out["predictor"] = _predict_over_cards(world)
+        if rank == 0 and not (
+                out["predictor"]["max_rel_err"] <= TOL["bfloat16"]):
+            out["failed"].append("predictor")
+    out["costs"] = [None] * world
+    dist.all_gather_object(out["costs"], dp_costs(world))
+    mine = {k: tally[k] + v - before[k] for k, v in launch_counts().items()}
+    out["launches_by_rank"] = [None] * world
+    dist.all_gather_object(out["launches_by_rank"], mine)
+    if rank == 0:
+        out["links"] = card_links(out_file)
+        with open(out_file, "w") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+    if out["failed"]:
+        sys.exit(1)
+
+
+def card_links(out_file: str) -> dict:
+    """How the cards reach each other: CUDA peer access between every
+    pair, and the transports NCCL's INIT log (``NCCL_DEBUG_FILE``) names
+    for its channels (e.g. ``P2P/CUMEM``, ``SHM``)."""
+    import glob
+    import re
+
+    n = torch.cuda.device_count()
+    via = {}
+    for path in glob.glob(f"{out_file}.nccl.*"):
+        with open(path, errors="replace") as f:
+            for line in f:
+                m = re.search(r" via (\S+)", line)
+                if m:
+                    via[m.group(1)] = via.get(m.group(1), 0) + 1
+    return {"peer_access": [[i == j or torch.cuda.can_device_access_peer(
+                i, j) for j in range(n)] for i in range(n)],
+            "nccl_via": via}
+
+
+def _card_form_row(got, every, ref, names, lr) -> dict:
+    """Rank 0's record of one form: :func:`parallel_errors` of its gathered
+    state, the logits error the largest over every rank's rows, and each
+    rank's held kernel calls, launches and bytes."""
+    def ref_rows(spans):
+        return (ref["logits"] if spans is None else
+                torch.cat([ref["logits"][a:b] for a, b in spans]))
+
+    row = {"faults": [(r, e["fault"]) for r, e in enumerate(every)
+                      if e["fault"]]}
+    if got is not None and not row["faults"]:
+        row.update(parallel_errors(got, ref, got["logits"],
+                                   ref_rows(got["rows"]), names, lr))
+        row["logits"] = max(compare(e["logits"], ref_rows(e["rows"]))[1]
+                            for e in every)
+        row["losses_equal"] = len({e["loss"] for e in every}) == 1
+        if not row["losses_equal"]:
+            row["faults"].append((None, "ranks report other losses"))
+    for key in ("held", "launches", "bytes"):
+        row[key] = [e.get(key) for e in every]
+    return row
+
+
+def card_guard(quadrant, fusion_head, stem_bn) -> dict:
+    """(d) With device 0 current, each kernel form on tensors of every
+    other card, at the shapes a dp4 rank gives it (B 64; the stem map of
+    64 images), against its plain version on that card to TOL of bf16:
+    each output must lie on its input's card and device 0 stay current.
+    The wrappers' counters are put back: these launches compare."""
+    counts = (quadrant.launches, quadrant.training_launches,
+              fusion_head.launches, fusion_head.training_launches,
+              dict(stem_bn.launches))
+    rows, failed = {}, []
+    bf = torch.bfloat16
+    try:
+        for i in range(1, torch.cuda.device_count()):
+            dev = torch.device("cuda", i)
+            fmap, kernel, bias = (t.to(dev) for t in quadrant_inputs(
+                64, 14, 256, 128, bf, seed=i))
+            x, w1, b1, w2, b2 = (t.to(dev) for t in head_inputs(
+                64, 5376, 2688, 8, bf, seed=i))
+            rng = np.random.default_rng(i)
+            stem = torch.from_numpy((rng.normal(size=(64, 112, 112, 64)) * 3
+                                     + 0.5).astype(np.float32)).to(dev, bf)
+            a = torch.from_numpy(rng.uniform(0.5, 2.0, 64).astype(
+                np.float32)).to(dev)
+            b = torch.from_numpy(rng.normal(size=64).astype(
+                np.float32)).to(dev)
+            keep = fusion_head.philox_bits(
+                1234, 64, 2688, dev, 64 * i) >= fusion_head.dropout_threshold(
+                0.5)
+            plain_head = fusion_head.fusion_head_plain(
+                x.float(), w1.float(), b1, w2.float(), b2, 0.5, keep,
+                with_h=True)
+            pairs = {
+                "quadrant": (quadrant.quadrant_process(fmap, kernel, bias),
+                             quadrant.quadrant_process_plain(
+                                 fmap.float(), kernel.float(), bias)),
+                "quadrant_train": (
+                    quadrant.quadrant_process_with_act(fmap, kernel, bias),
+                    quadrant.quadrant_process_plain(
+                        fmap.float(), kernel.float(), bias, with_act=True)),
+                "fusion_head": (fusion_head.fusion_head(x, w1, b1, w2, b2),
+                                fusion_head.fusion_head_plain(
+                                    x.float(), w1.float(), b1, w2.float(),
+                                    b2)),
+                "fusion_head_train": (fusion_head.fusion_head_with_h(
+                    x, w1, b1, w2, b2, rate=0.5, seed=1234,
+                    row_offset=64 * i), plain_head),
+                "channel_stats": (stem_bn.channel_stats(stem),
+                                  stem_bn.channel_stats_plain(stem)),
+                "affine_relu": (stem_bn.affine_relu(stem, a, b),
+                                stem_bn.affine_relu_plain(stem, a, b))}
+            torch.cuda.synchronize(dev)
+            for kname, (got, want) in pairs.items():
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                rel = max(compare(g, w)[1] for g, w in zip(got, want))
+                on = all(g.device == dev for g in got)
+                rows[f"{kname}_cuda{i}"] = {"max_rel_err": rel,
+                                            "on_its_card": on}
+                if not (on and rel <= TOL["bfloat16"]):
+                    failed.append(f"{kname} on cuda:{i}")
+            if torch.cuda.current_device() != 0:
+                failed.append(f"device {torch.cuda.current_device()} "
+                              f"current after cuda:{i}")
+    except RuntimeError as e:   # a launch the runtime refused
+        failed.append(str(e)[:500])
+    finally:
+        (quadrant.launches, quadrant.training_launches, fusion_head.launches,
+         fusion_head.training_launches) = counts[:4]
+        stem_bn.launches.update(counts[4])
+    return {"rows": rows, "failed": failed}
+
+
 def _param_errors(got, want, names, lr):
     """The state after one AdamW step against one process's. Adam's first
     update is lr·g/(|g| + 1e-8): ±lr whatever the gradient's scale, so the
@@ -3920,22 +4351,142 @@ def _param_errors(got, want, names, lr):
             "unresolved_share": float(loose.double().mean())}
 
 
+def parallel_errors(got, ref, logits, ref_logits, names, lr) -> dict:
+    """A parallel run (its gathered state, and ``logits`` of the rows
+    ``ref_logits`` holds) against the one-process step on the same global
+    batch: the loss, logits and BN running statistics relative to the
+    reference's largest, and :func:`_param_errors`."""
+    row = {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+           "logits": compare(logits, ref_logits)[1],
+           "bn_stats": max(compare(got["model"][k], v)[1]
+                           for k, v in ref["model"].items()
+                           if "running" in k)}
+    row.update(_param_errors(got, ref, names, lr))
+    return row
+
+
+def parallel_failed(row: dict, dtype: str) -> bool:
+    """Beyond ``PARALLEL_TOL`` of ``dtype``; in f32 also the gradients
+    beyond ``PARALLEL_GRAD_TOL`` or more than 5% of them unresolved."""
+    bad = max(row[k] for k in ("loss", "logits", "bn_stats", "params",
+                               "params_beyond_2lr")) > PARALLEL_TOL[dtype]
+    if dtype == "float32":
+        bad |= (row["grads"] > PARALLEL_GRAD_TOL
+                or row["unresolved_share"] > 0.05)
+    return bad
+
+
+def _rank_lines(stdout: str) -> list:
+    """The result lines of a ``torchrun`` job of the CLI: the JSON lines
+    that carry every rank's launches (rank 0 prints them)."""
+    return [json.loads(x) for x in stdout.splitlines()
+            if x.startswith("{") and "kernel_launches_by_rank" in x]
+
+
+def cards_cli(started, root, train_base, pack, n, serve):
+    """(b) The CLI under ``torchrun --nproc-per-node=n``, one card a rank,
+    a generator for :func:`parallel_phase`: ``started`` (the ZeRO-1 and
+    FSDP2 trains of one epoch over dp``n``) is awaited; each must print
+    one result line (rank 0 alone) and write one metrics record an epoch,
+    with exact launches on every rank. Then, at once, ``eval`` of the
+    ZeRO-1 checkpoint over dp``n`` (its test metrics those the train
+    printed) and a ``--resume`` of the FSDP2 run to a second epoch (which
+    must take up from epoch 0); each run's last checkpoint is served on
+    one card (``serve``). → (record, faults, every rank's launches of
+    every job)."""
+    yield from until_done(started)
+    runs, faults, record, launches = started.result(), [], {}, []
+    steps = LOOP_SPLITS["train"] // 16
+    evals = LOOP_SPLITS["valid"] // 16
+    tests = LOOP_SPLITS["test"] // 16
+
+    def held(label, stdout, want):
+        lines = _rank_lines(stdout)
+        if len(lines) != 1:
+            faults.append(f"{label}: {len(lines)} result lines, not rank "
+                          "0's one")
+            return None
+        by_rank = lines[0]["kernel_launches_by_rank"]
+        launches.extend(by_rank)
+        if len(by_rank) != n or any(
+                r != {"quadrant": want, "fusion_head": want,
+                      "channel_stats": 0, "affine_relu": 0}
+                for r in by_rank):
+            faults.append(f"{label}: launches {by_rank}, want {want} on "
+                          f"each of {n} ranks")
+        return lines[0]
+
+    for form in runs:
+        line = held(f"train {form}", runs[form][0],
+                    {"training": steps, "inference": evals + tests})
+        epochs = [r["epoch"] for r in epoch_records(
+            os.path.join(root, f"{form}{n}"))]
+        if epochs != [0]:
+            faults.append(f"train {form}: epoch records {epochs}")
+        record[form] = {"test": line and line["test"],
+                        "seconds": runs[form][1]}
+    fsdp_run = os.path.join(root, f"fsdp{n}")
+    later = POOL.submit(finish, {
+        "eval": start_torchrun(n, [
+            "-m", "surya_tpu_torch", "eval",
+            os.path.join(root, f"zero1{n}", "ckpt", "0.pt"), "--preset",
+            "quadtree-fusion", f"--data.packed_dir={pack}",
+            f"--mesh.data={n}"]),
+        "resume": start_torchrun(n, [
+            *train_base, "--train.epochs=2", "--out", fsdp_run,
+            "--train.fsdp=true", f"--mesh.data={n}", "--resume"])},
+        timeout=600)
+    yield from until_done(later)
+    runs = later.result()
+    ev = held("eval zero1", runs["eval"][0],
+              {"training": 0, "inference": tests})
+    test = record["zero1"]["test"]
+    if ev is not None and test is not None and not (
+            ev["count"] == test["count"] == LOOP_SPLITS["test"]
+            and abs(ev["accuracy"] - test["accuracy"]) <= 1 / ev["count"]
+            and abs(ev["loss"] - test["loss"]) <= 1e-2 * test["loss"]):
+        faults.append(f"eval zero1 {ev} against the train's {test}")
+    record["zero1"].update(
+        eval=ev and {k: ev[k] for k in ("loss", "accuracy", "count")},
+        eval_seconds=runs["eval"][1],
+        served=serve("zero1", os.path.join(root, f"zero1{n}", "ckpt")))
+    resumed = held("resume fsdp", runs["resume"][0],
+                   {"training": steps, "inference": evals + tests})
+    with open(os.path.join(fsdp_run, "metrics.jsonl")) as f:
+        resumes = [r for r in map(json.loads, f)
+                   if r.get("event") == "resume"]
+    epochs = [r["epoch"] for r in epoch_records(fsdp_run)]
+    if [r["from_epoch"] for r in resumes] != [0] or epochs != [0, 1]:
+        faults.append(f"resume fsdp: {resumes}, epoch records {epochs}")
+    record["fsdp"].update(
+        resumed_test=resumed and resumed["test"],
+        resume_seconds=runs["resume"][1],
+        served=serve("fsdp", os.path.join(fsdp_run, "ckpt")))
+    return record, faults, launches
+
+
 def parallel_phase(quadrant, fusion_head, card):
-    """The port's parallel path on the one card. (a) The CLI as a user
-    runs it under ``torchrun --nproc-per-node=1`` (one NCCL rank): ``train
-    --preset quadtree-fusion`` for one epoch of the loop phase's synthetic
-    pack with ``--train.zero1=true`` and with ``--train.fsdp=true`` (both
-    at once), each child's kernel launches counted, each final checkpoint
-    served by a one-device ``Predictor``. (b) Two ranks on the card over
-    gloo with CUDA tensors: the dp2 step (bf16, global batch 256, dropout
-    0.5; and f32 at batch 16) against the one-process step on the global
-    batch with the same generators (loss, logits, BN statistics,
-    parameters), then model=2 with every kernel call held against its
-    plain version. (c) One NCCL rank: the DP step against the plain one,
-    bytes all-reduced, the global-batch BN's cost and fsdp's peak memory.
-    A side-by-side phase (:func:`side_by_side`): (a) and (b) run at once
-    with the others, (c), which is timed, alone at the end. → the kernel
-    launches of (a) and (b)."""
+    """The port's parallel path. (a) The CLI as a user runs it under
+    ``torchrun --nproc-per-node=1`` (one NCCL rank): ``train --preset
+    quadtree-fusion`` for one epoch of the loop phase's synthetic pack with
+    ``--train.zero1=true`` and with ``--train.fsdp=true`` (both at once),
+    each child's kernel launches counted, each final checkpoint served by a
+    one-device ``Predictor``. (b) Two ranks on the card over gloo with
+    CUDA tensors: the dp2 step (bf16, global batch 256, dropout 0.5; and
+    f32 at batch 16) against the one-process step on the global batch
+    with the same generators (loss, logits, BN statistics, parameters),
+    then model=2 with every kernel call held against its plain version.
+    (c) One NCCL rank: the DP step against the plain one, bytes
+    all-reduced, the global-batch BN's cost and fsdp's peak memory. With
+    N ≥ 2 cards, over min(4, N) of them: the CLI under ``torchrun``
+    (:func:`cards_cli`), the forms of ``PARALLEL_CARD_FORMS`` and
+    ``Predictor`` over the cards
+    (:func:`parallel_card_child`), and every kernel launched from here on
+    each card but the current one (:func:`card_guard`); on one card a
+    line names what was left out. A side-by-side phase
+    (:func:`side_by_side`): the CLI runs and (b) run at once with the
+    others; (c) and the card children, which are timed, alone at the end.
+    → the kernel launches of (a), (b) and every rank of the cards' jobs."""
     import shutil
     import tempfile
 
@@ -3943,16 +4494,18 @@ def parallel_phase(quadrant, fusion_head, card):
     from surya_tpu_torch.data.packed import pack_arrays
     from surya_tpu_torch.infer.serve import Predictor
     from surya_tpu_torch.models import get_model
+    from surya_tpu_torch.ops.cuda import stem_bn
     from surya_tpu_torch.train.steps import trainable_mask
 
     t_phase = time.perf_counter()
+    worlds = card_worlds()
     root = tempfile.mkdtemp(prefix="surya_parallel_")
     try:
         pack = os.path.join(root, "pack")
         pack_arrays(pack, synthetic_splits(LOOP_SPLITS), CLASS_NAMES)
-        train = ["-m", "surya_tpu_torch", "train", "--preset",
-                 "quadtree-fusion", f"--data.packed_dir={pack}",
-                 "--train.epochs=1"]
+        train_base = ["-m", "surya_tpu_torch", "train", "--preset",
+                      "quadtree-fusion", f"--data.packed_dir={pack}"]
+        train = [*train_base, "--train.epochs=1"]
         forms = ("zero1", "fsdp")
         cli = POOL.submit(finish, {f: start_torchrun(
             1, [*train, "--out", os.path.join(root, f), f"--train.{f}=true"])
@@ -3962,6 +4515,11 @@ def parallel_phase(quadrant, fusion_head, card):
         gloo = POOL.submit(finish, {"gloo": start_torchrun(
             2, [os.path.abspath(__file__), "--parallel-gloo", gdir])},
             timeout=400)
+        ncards = max(worlds, default=1)
+        cards_started = worlds and POOL.submit(finish, {f: start_torchrun(
+            ncards, [*train, "--out", os.path.join(root, f"{f}{ncards}"),
+                     f"--train.{f}=true", f"--mesh.data={ncards}"])
+            for f in forms}, timeout=600)
         yield
         refs = {name: parallel_step(PARALLEL_RUNS[name])
                 for name in ("dp2_bf16", "dp2_f32")}
@@ -3975,6 +4533,17 @@ def parallel_phase(quadrant, fusion_head, card):
         rng = np.random.default_rng(7)
         images = rng.integers(0, 256, (128, 224, 224, 3), np.uint8)
         feats = rng.normal(size=(128, 47)).astype(np.float32)
+
+        def serve(form, ckpt):
+            sd = load_checkpoint_variables(ckpt)
+            _, probs = Predictor(cfg.model, sd, batch_size=64,
+                                 param_dtype=torch.bfloat16,
+                                 input_dtype="uint8").predict(images, feats)
+            if not (probs.shape == (128, 8) and np.isfinite(probs).all()
+                    and np.allclose(probs.sum(1), 1.0, atol=1e-3)):
+                raise AssertionError(f"{form}: checkpoint serves badly")
+            return True
+
         served, cli_launches = {}, {}
         for form in forms:
             summary = last_json(cli[form][0])
@@ -3982,13 +4551,7 @@ def parallel_phase(quadrant, fusion_head, card):
             if got["quadrant"] != want or got["fusion_head"] != want:
                 raise AssertionError(f"{form}: launches {got} != {want}")
             cli_launches[form] = got
-            sd = load_checkpoint_variables(os.path.join(root, form, "ckpt"))
-            _, probs = Predictor(cfg.model, sd, batch_size=64,
-                                 param_dtype=torch.bfloat16,
-                                 input_dtype="uint8").predict(images, feats)
-            if not (probs.shape == (128, 8) and np.isfinite(probs).all()
-                    and np.allclose(probs.sum(1), 1.0, atol=1e-3)):
-                raise AssertionError(f"{form}: checkpoint serves badly")
+            serve(form, os.path.join(root, form, "ckpt"))
             served[form] = {"test": summary["test"],
                             "seconds": cli[form][1]}
 
@@ -3999,32 +4562,27 @@ def parallel_phase(quadrant, fusion_head, card):
             cfg.model.freeze_backbone).items() if t]
         held, errs = None, {}
         for name in PARALLEL_RUNS:
-            ref = refs["dp2_f32" if "f32" in name else "dp2_bf16"]
-            tol = PARALLEL_TOL["float32" if "f32" in name else "bfloat16"]
+            dtype = PARALLEL_RUNS[name]["dtype"]
+            ref = refs["dp2_f32" if dtype == "float32" else "dp2_bf16"]
             got = ranks[0][name]
             logits = (torch.cat([ranks[0][name]["logits"],
                                  ranks[1][name]["logits"]])
                       if name.startswith("dp2") else got["logits"])
-            row = {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
-                   "logits": compare(logits, ref["logits"])[1],
-                   "bn_stats": max(compare(got["model"][k], v)[1]
-                                   for k, v in ref["model"].items()
-                                   if "running" in k)}
-            row.update(_param_errors(got, ref, names, cfg.train.lr))
+            row = parallel_errors(got, ref, logits, ref["logits"], names,
+                                  cfg.train.lr)
             row["launches"] = got["launches"]
             row["bytes"] = got["bytes"]
             errs[name] = row
-            bad = max(row[k] for k in ("loss", "logits", "bn_stats",
-                                       "params", "params_beyond_2lr")) > tol
-            if "f32" in name:
-                bad |= (row["grads"] > PARALLEL_GRAD_TOL
-                        or row["unresolved_share"] > 0.05)
-            if bad:
+            if parallel_failed(row, dtype):
                 raise AssertionError(f"{name} vs one process: {row}")
             if got["held"] is not None:
                 held = got["held"]
         if held is None:
             raise AssertionError("the model=2 run held no kernel call")
+        cards_rec, faults, card_launches = {}, [], []
+        if worlds:
+            cards_rec["cli"], faults, card_launches = yield from cards_cli(
+                cards_started, root, train_base, pack, ncards, serve)
 
         yield SOLO
         nfile = os.path.join(root, "nccl.json")
@@ -4033,6 +4591,27 @@ def parallel_phase(quadrant, fusion_head, card):
                timeout=300)
         with open(nfile) as f:
             nccl = json.load(f)
+        for world in worlds:
+            cfile = os.path.join(root, f"cards{world}.json")
+            proc = start_torchrun(world, [os.path.abspath(__file__),
+                                          "--parallel-cards", cfile])
+            try:
+                stdout, stderr = proc.communicate(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            if not os.path.exists(cfile):
+                faults.append(f"{world} cards: exit {proc.returncode}\n"
+                              f"{stdout[-3000:]}\n{stderr[-6000:]}")
+                continue
+            with open(cfile) as f:
+                cards_rec[f"world{world}"] = rec = json.load(f)
+            faults += [f"{world} cards: {name}" for name in rec["failed"]]
+            card_launches += rec["launches_by_rank"]
+        if worlds:
+            cards_rec["guard"] = card_guard(quadrant, fusion_head, stem_bn)
+            faults += cards_rec["guard"]["failed"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     seconds = time.perf_counter() - t_phase
@@ -4040,9 +4619,22 @@ def parallel_phase(quadrant, fusion_head, card):
           "gloo_two_ranks": errs, "gloo_seconds": gloo_s,
           "tp2_held": held, "nccl_one_rank": nccl, "seconds": seconds,
           **card})
+    run_forms = [f for f, (w, _, _) in PARALLEL_CARD_FORMS.items()
+                 if w in worlds]
+    emit({"phase": "parallel_cards", "cards": torch.cuda.device_count(),
+          "worlds": worlds, "forms_run": run_forms,
+          "left_out": [f for f in PARALLEL_CARD_FORMS if f not in run_forms]
+          + ([] if worlds else ["cli_torchrun", "predictor_over_cards",
+                                "device_guard"]),
+          "why_left_out": "NCCL takes one card a rank: a form of W ranks "
+                          "needs W cards",
+          **cards_rec, "faults": faults, **card})
+    if faults:
+        raise AssertionError(f"parallel over cards: {faults}")
     # the four model forms' launches on this path: both CLI children and
     # every gloo run on rank 0 (the head's dropout forward outside a
-    # gradient counts as its inference launch)
+    # gradient counts as its inference launch), and every rank of the
+    # cards' CLI jobs and NCCL children
     total = {"quadrant": 0, "quadrant_train": 0, "fusion_head": 0,
              "fusion_head_train": 0}
     for form in forms:
@@ -4054,6 +4646,14 @@ def parallel_phase(quadrant, fusion_head, card):
         for kname in ("quadrant", "fusion_head"):
             total[kname] += got[kname] - got[f"{kname}_train"]
             total[f"{kname}_train"] += got[f"{kname}_train"]
+    for got in card_launches:
+        for kname in ("quadrant", "fusion_head"):
+            if isinstance(got[kname], dict):   # the CLI's form
+                total[kname] += got[kname]["inference"]
+                total[f"{kname}_train"] += got[kname]["training"]
+            else:
+                total[kname] += got[kname]
+                total[f"{kname}_train"] += got[f"{kname}_train"]
     return total
 
 
@@ -4828,6 +5428,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--parallel-nccl"]:
         parallel_nccl_child(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--parallel-cards"]:   # one NCCL rank a card
+        parallel_card_child(sys.argv[2])
         sys.exit(0)
     if sys.argv[1:2] == ["--fact-gloo"]:   # the fact_parallel phase's ranks
         fact_gloo_child(sys.argv[2])

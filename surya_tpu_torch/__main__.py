@@ -134,6 +134,16 @@ def _build_mesh(cfg, device):
     return mesh
 
 
+def _end_distributed() -> None:
+    """Destroy the process group a command initialised under ``torchrun``
+    (NCCL warns, and may hang at exit, when a group is left to the
+    interpreter's teardown)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def _config(args, rest):
     from surya_tpu_torch.core.config import get_preset, parse_cli_overrides
 
@@ -155,6 +165,23 @@ def kernel_launches() -> dict:
               for name, m in (("quadrant", quadrant),
                               ("fusion_head", fusion_head))}
     return {**counts, **stem_bn.launches}
+
+
+def launch_record(mesh, device) -> dict:
+    """On the card, ``{"kernel_launches": this process's counts}``, and
+    under a mesh of several ranks also ``"kernel_launches_by_rank"``,
+    every rank's in rank order (a collective: every rank calls it); on the
+    CPU nothing."""
+    if device.type != "cuda":
+        return {}
+    mine = kernel_launches()
+    if not mesh.distributed:
+        return {"kernel_launches": mine}
+    import torch.distributed as dist
+
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return {"kernel_launches": mine, "kernel_launches_by_rank": every}
 
 
 def cmd_train(argv: list[str]) -> int:
@@ -213,6 +240,7 @@ def cmd_train(argv: list[str]) -> int:
                                      device=device)
     finally:
         logger.close()
+    launches = launch_record(mesh, device)
     if not mesh.is_main:
         return 0
 
@@ -234,9 +262,7 @@ def cmd_train(argv: list[str]) -> int:
               if k != "confusion"}
     line = {"best_epoch": summary["best_epoch"],
             "best_metric": summary["best_metric"], "test": result,
-            "preempted": summary["preempted"]}
-    if device.type == "cuda":
-        line["kernel_launches"] = kernel_launches()
+            "preempted": summary["preempted"], **launches}
     print(json.dumps(line), flush=True)
     return 0
 
@@ -263,13 +289,12 @@ def cmd_eval(argv: list[str]) -> int:
     out = evaluate_checkpoint(cfg, load_checkpoint_variables(args.checkpoint),
                               data, split=args.split, device=device,
                               mesh=mesh)
+    launches = launch_record(mesh, device)
     if not mesh.is_main:
         return 0
     line = {k: (v.tolist() if hasattr(v, "tolist") else float(v))
             for k, v in out.items() if k != "confusion"}
-    if device.type == "cuda":
-        line["kernel_launches"] = kernel_launches()
-    print(json.dumps(line), flush=True)
+    print(json.dumps({**line, **launches}), flush=True)
     return 0
 
 
@@ -628,7 +653,10 @@ def main(argv: list[str] | None = None) -> int:
                 "pose-train": cmd_pose_train, "export": cmd_export,
                 "export-torch": cmd_export_torch, "check": cmd_check}
     if cmd in commands:
-        return commands[cmd](rest)
+        try:
+            return commands[cmd](rest)
+        finally:
+            _end_distributed()
     if cmd == "serve":
         from surya_tpu_torch.infer.http_server import main as serve_main
 

@@ -354,18 +354,25 @@ def _last_json(text: str) -> dict:
 
 
 def run_job(name, preset, out_dir, overrides, device=None,
-            card=None) -> dict:
+            card=None, nproc=1) -> dict:
     """One row: ``python -m surya_tpu_torch train`` in a child → the
     ``result.json`` written (JAX's keys, the card, the launches), or an
-    error row."""
+    error row. ``nproc`` > 1 trains data-parallel over that many cards,
+    one process each, as ``torchrun --nproc-per-node=N ... --mesh.data=N``
+    (the global batch stays the preset's)."""
     res_path = os.path.join(out_dir, "result.json")
     prev = load_result(res_path) or {}
     attempts = int(prev.get("attempts", 0))
     os.makedirs(out_dir, exist_ok=True)
     seed = int(overrides["train.seed"])
-    args = [sys.executable, "-m", "surya_tpu_torch", "train", "--preset",
+    launcher = ([sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", f"--nproc-per-node={nproc}"]
+                if nproc > 1 else [sys.executable])
+    args = [*launcher, "-m", "surya_tpu_torch", "train", "--preset",
             preset, "--out", out_dir,
             *[f"--{k}={v}" for k, v in overrides.items()]]
+    if nproc > 1:
+        args.append(f"--mesh.data={nproc}")
     if device is not None:
         args += ["--device", device]
     t0 = time.time()
@@ -393,6 +400,9 @@ def run_job(name, preset, out_dir, overrides, device=None,
                   "runner": "surya_tpu_torch.bench.replay: python -m "
                             "surya_tpu_torch train in a child per run",
                   "kernel_launches": summary.get("kernel_launches"),
+                  **({"ranks": nproc, "kernel_launches_by_rank":
+                      summary.get("kernel_launches_by_rank")}
+                     if nproc > 1 else {}),
                   **card}
         with open(os.path.join(out_dir, "metrics.jsonl"), "a") as f:
             f.write(json.dumps(card) + "\n")
@@ -404,8 +414,9 @@ def run_job(name, preset, out_dir, overrides, device=None,
 
 
 def training_phase(groups, root: str, seeds: int, out: str, rows=None,
-                   device=None) -> list:
-    """Every row of ``groups`` not yet done, seed-major within a group."""
+                   device=None, nproc=1) -> list:
+    """Every row of ``groups`` not yet done, seed-major within a group,
+    each over ``nproc`` cards (:func:`run_job`)."""
     card, done = card_record(), []
     for group in groups:
         for name, preset, out_dir, ov in jobs_for(group, root, seeds, out):
@@ -415,7 +426,8 @@ def training_phase(groups, root: str, seeds: int, out: str, rows=None,
             if prev is not None and ("test" in prev or int(
                     prev.get("attempts", 1)) >= MAX_ATTEMPTS):
                 continue
-            done.append(run_job(name, preset, out_dir, ov, device, card))
+            done.append(run_job(name, preset, out_dir, ov, device, card,
+                                nproc))
     return done
 
 
@@ -763,6 +775,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="comma-separated row names (default: every row)")
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs the plain path")
+    ap.add_argument("--nproc", type=int, default=1,
+                    help="train each row data-parallel over this many "
+                         "cards under torchrun (--mesh.data=N)")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     os.makedirs(args.out, exist_ok=True)
@@ -772,7 +787,7 @@ def main(argv: list[str] | None = None) -> int:
     elif args.phase in PHASE_GROUPS:
         rows = [r for r in args.rows.split(",") if r]
         done = training_phase(PHASE_GROUPS[args.phase], root, args.seeds,
-                              args.out, rows, args.device)
+                              args.out, rows, args.device, args.nproc)
         return 1 if any("test" not in r for r in done) else 0
     elif args.phase == "pose":
         rows = pose_phase(args.seeds, args.out, args.device)

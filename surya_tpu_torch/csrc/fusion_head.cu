@@ -410,22 +410,29 @@ head_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 }
 
 // How many clusters of `split` blocks of this plan can be resident at once
-// (clusters must fit inside one GPC), asked of the runtime once per shape
-// class and remembered.
+// (clusters must fit inside one GPC), asked of the runtime once per device
+// and shape class and remembered. The device is the current one, which the
+// Python wrapper sets to the tensors' card before every launch.
+constexpr int kMaxDevices = 16;
+
 int max_clusters(const HeadPlan& p, int split) {
-  static int cache[3][4] = {
-      {-1, -1, -1, -1}, {-1, -1, -1, -1}, {-1, -1, -1, -1}};
-  int& n = cache[p.bm / 128][split == 8 ? 3 : split / 2];
-  if (n >= 0) return n;
+  static int cache[kMaxDevices][3][4] = {};  // the count + 1; 0: not asked
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
+    cudaGetLastError();
+    dev = 0;
+  }
+  int& n = cache[dev][p.bm / 128][split == 8 ? 3 : split / 2];
+  if (n > 0) return n - 1;
   const void* kernels[2] = {
       reinterpret_cast<const void*>(head_wgmma_kernel<false>),
       reinterpret_cast<const void*>(head_wgmma_kernel<true>)};
-  n = 0;
   for (const void* k : kernels) {
     if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              p.smem) != cudaSuccess) {
       cudaGetLastError();
-      return n = 0;
+      n = 1;
+      return 0;
     }
   }
   cudaLaunchConfig_t cfg = {};
@@ -444,7 +451,8 @@ int max_clusters(const HeadPlan& p, int split) {
     cudaGetLastError();
     got = 0;
   }
-  return n = got;
+  n = got + 1;
+  return got;
 }
 
 // bm rows (64 up to B=64, 128 up to 128, else 256: one m64 slice per

@@ -10,6 +10,14 @@ plain C interface (no PyTorch headers), which keeps a build to seconds.
 Every C entry point takes its pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()``; :func:`check` raises
 when that is not 0, so a refused launch never passes silently.
+
+The sources launch on the CUDA runtime's *current* device (and set their
+kernels' shared-memory attributes and query occupancy there), while the
+stream comes from the tensors' device. :func:`launch` therefore makes the
+tensors' device current around every call, so a wrapper launches on its
+tensors' card whatever device the caller has current. Without it, a
+tensor on ``cuda:1`` while device 0 is current meets another card's
+stream: on four H100s each wrapper's launch was refused or faulted.
 """
 
 from __future__ import annotations
@@ -136,5 +144,19 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def same_device(what: str, device, *tensors) -> None:
+    """Raise unless every tensor lies on ``device`` (the kernel reads its
+    operands through plain pointers)."""
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"{what}: operand on {t.device}, input on "
+                             f"{device}")
+
+
+def launch(what: str, fn, device, *args) -> None:
+    """``fn(*args, stream)`` with ``device`` the current CUDA device and
+    ``stream`` its current stream; raises what :func:`check` raises."""
+    with torch.cuda.device(device):
+        err = fn(*args, ctypes.c_void_p(
+            torch.cuda.current_stream(device).cuda_stream))
+    check(err, what)

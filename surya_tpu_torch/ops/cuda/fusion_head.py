@@ -144,6 +144,7 @@ def _forward(x, w1, b1, w2, b2, rate: float, seed, with_h: bool,
                                row_offset) >= dropout_threshold(rate)
         res = fusion_head_plain(x, w1, b1, w2, b2, rate, keep, with_h=with_h)
         return res if with_h else (res, None)
+    _build.same_device("fusion_head_forward", x.device, w1, b1, w2, b2)
     w1c = w1.to(x.dtype).contiguous()   # no-op for weights already cast
     w2c = w2.to(x.dtype).contiguous()
     if not x.is_contiguous():
@@ -158,22 +159,23 @@ def _forward(x, w1, b1, w2, b2, rate: float, seed, with_h: bool,
                                  device=x.device).reshape(1)
     lib = _build.load("fusion_head", _SIGNATURES)
     is_bf16 = int(x.dtype == torch.bfloat16)
-    partial = torch.empty((lib.fusion_head_n_tiles(b, d, hdim, is_bf16), b, c),
-                          dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):   # the plan asks the launch's card
+        tiles = lib.fusion_head_n_tiles(b, d, hdim, is_bf16)
+    partial = torch.empty((tiles, b, c), dtype=torch.float32,
+                          device=x.device)
     out = torch.empty((b, c), dtype=torch.float32, device=x.device)
     h = (torch.empty((b, hdim), dtype=x.dtype, device=x.device)
          if with_h else None)
     b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
-    err = lib.fusion_head_forward(
+    _build.launch(
+        "fusion_head_forward", lib.fusion_head_forward, x.device,
         _build.ptr(x), _build.ptr(w1c), _build.ptr(b1f), _build.ptr(w2c),
         _build.ptr(b2f), _build.ptr(partial), _build.ptr(out),
         _build.ptr(h) if with_h else None,
         _build.ptr(seed_t) if rate > 0.0 else None,
         b, d, hdim, c, is_bf16,
         dropout_threshold(rate) if rate > 0.0 else 0,
-        1.0 / (1.0 - rate) if rate > 0.0 else 1.0, int(row_offset),
-        _build.stream_ptr(x.device))
-    _build.check(err, "fusion_head_forward")
+        1.0 / (1.0 - rate) if rate > 0.0 else 1.0, int(row_offset))
     launches += 1
     training_launches += int(with_h)
     return out, h

@@ -94,6 +94,7 @@ def _forward(fmap, kernel, bias, with_act: bool):
     if with_act and h > 64:
         raise ValueError(f"the training form takes H <= 64, got H={h}")
     cout = kernel.shape[3]
+    _build.same_device("quadrant_forward", fmap.device, kernel, bias)
     w = kernel.to(fmap.dtype).contiguous()   # no-op for weights already cast
     bf = bias.float().contiguous()
     if fmap.data_ptr() % 16 or w.data_ptr() % 32:
@@ -103,12 +104,11 @@ def _forward(fmap, kernel, bias, with_act: bool):
     act = (torch.empty((b, h, h, cout), dtype=fmap.dtype, device=fmap.device)
            if with_act else None)
     lib = _build.load("quadrant", _SIGNATURES)
-    err = lib.quadrant_forward(
+    _build.launch(
+        "quadrant_forward", lib.quadrant_forward, fmap.device,
         _build.ptr(fmap), _build.ptr(w), _build.ptr(bf), _build.ptr(out),
         _build.ptr(act) if with_act else None,
-        b, h, cin, cout, int(fmap.dtype == torch.bfloat16),
-        _build.stream_ptr(fmap.device))
-    _build.check(err, "quadrant_forward")
+        b, h, cin, cout, int(fmap.dtype == torch.bfloat16))
     launches += 1
     training_launches += int(with_act)
     return out, act

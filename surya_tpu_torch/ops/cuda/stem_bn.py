@@ -70,10 +70,9 @@ def channel_stats(x: torch.Tensor):
     blocks = lib.stem_bn_stats_blocks(n, c, is_bf16)
     partial = torch.empty((blocks, 2, c), dtype=torch.float32, device=x.device)
     out = torch.empty((2, c), dtype=torch.float32, device=x.device)
-    err = lib.stem_bn_channel_stats(
-        _build.ptr(x), _build.ptr(partial), _build.ptr(out), n, c, is_bf16,
-        _build.stream_ptr(x.device))
-    _build.check(err, "stem_bn_channel_stats")
+    _build.launch("stem_bn_channel_stats", lib.stem_bn_channel_stats,
+                  x.device, _build.ptr(x), _build.ptr(partial),
+                  _build.ptr(out), n, c, is_bf16)
     launches["channel_stats"] += 1
     return out[0], out[1]
 
@@ -88,14 +87,14 @@ def affine_relu(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
                          f"fit C={c}")
     if not on_cuda(x):
         return affine_relu_plain(x, a, b)
+    _build.same_device("stem_bn_affine_relu", x.device, a, b)
     af, bf = a.float().contiguous(), b.float().contiguous()
     y = torch.empty_like(x)
     lib = _build.load("stem_bn", _SIGNATURES)
-    err = lib.stem_bn_affine_relu(
-        _build.ptr(x), _build.ptr(af), _build.ptr(bf), _build.ptr(y),
-        x.numel() // c, c, int(x.dtype == torch.bfloat16),
-        _build.stream_ptr(x.device))
-    _build.check(err, "stem_bn_affine_relu")
+    _build.launch("stem_bn_affine_relu", lib.stem_bn_affine_relu, x.device,
+                  _build.ptr(x), _build.ptr(af), _build.ptr(bf),
+                  _build.ptr(y), x.numel() // c, c,
+                  int(x.dtype == torch.bfloat16))
     launches["affine_relu"] += 1
     return y
 

@@ -56,3 +56,29 @@ def test_nonzero_launch_status_raises():
     _build.check(0, "ok")
     with pytest.raises(RuntimeError, match="error 9"):
         _build.check(9, "quadrant_forward")
+
+
+def test_four_processes_building_at_once_all_come_up(tmp_path, build_dir):
+    """Four processes (the ranks of a four-card job) build every source
+    into one empty directory at once: each compiles to a file of its own
+    pid and renames it into place, so all four finish with every library
+    there and no temporary file left."""
+    import subprocess
+
+    nvcc = _fake_nvcc(tmp_path, (
+        "import time; time.sleep(0.5)\n"
+        "open(args[args.index('-o') + 1], 'w').write('lib')\n"))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys; from surya_tpu_torch.ops.cuda import KERNELS, "
+            "_build; from pathlib import Path; "
+            "_build.BUILD_DIR = Path(sys.argv[1]); "
+            "_build._nvcc = lambda: sys.argv[2]; "
+            "_build.build_all(KERNELS)")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(build_dir),
+                               nvcc], cwd=root, stderr=subprocess.PIPE,
+                              text=True) for _ in range(4)]
+    for p in procs:
+        _, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err
+    assert sorted(p.name for p in build_dir.iterdir()) == sorted(
+        _build._lib_path(k).name for k in KERNELS)

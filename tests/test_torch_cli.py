@@ -208,6 +208,38 @@ def test_kernel_launches_lists_every_kernel():
                    "channel_stats": 0, "affine_relu": 0}
 
 
+def test_launch_record_gathers_every_rank_and_the_group_ends(tmp_path):
+    """Under a mesh of ranks a card run's result line carries every rank's
+    launch counters (an ``all_gather_object`` on every rank, rank 0
+    prints); on the CPU it carries none. A command run from ``main``
+    destroys the process group ``torchrun`` had it initialise."""
+    import torch.distributed as dist
+
+    from surya_tpu_torch import __main__ as cli
+    from surya_tpu_torch.core.mesh import create_mesh, single_device_mesh
+
+    cpu, card = torch.device("cpu"), torch.device("cuda")
+    assert cli.launch_record(single_device_mesh("cpu"), cpu) == {}
+    assert cli.launch_record(single_device_mesh("cpu"), card) == {
+        "kernel_launches": cli.kernel_launches()}
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = create_mesh(device="cpu")
+        assert mesh.distributed
+        got = cli.launch_record(mesh, card)
+        assert got == {"kernel_launches": cli.kernel_launches(),
+                       "kernel_launches_by_rank": [cli.kernel_launches()]}
+        assert cli.launch_record(mesh, cpu) == {}
+        with pytest.raises(ValueError, match="checkpoint must be"):
+            cli.main(["eval", str(tmp_path / "missing"), "--synthetic",
+                      *TINY])
+        assert not dist.is_initialized()   # even when the command raised
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def test_cli_refusals(tmp_path, capsys):
     assert main(["list-presets"]) == 0
     assert len(capsys.readouterr().out.strip().splitlines()) == 16

@@ -528,3 +528,65 @@ def test_exported_artifact_on_the_card(cuda, tmp_path):
         cfg, state, batch_size=4, image_size=64, input_dtype="uint8",
         device="cpu").cost_analysis()
     assert (tquad.launches, thead.launches) == launched
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_every_wrapper_launches_on_its_tensors_card(cuda, dtype, tol):
+    """With device 0 current, every kernel form on tensors of each other
+    card: the output lies on that card and matches the plain version
+    there, device 0 stays current, and an operand on another card than
+    the input raises (the ctypes entries launch on the runtime's current
+    device, so the wrappers make the tensors' device current)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two CUDA cards, found {n}")
+    torch.cuda.set_device(0)
+    for i in range(1, n):
+        dev = torch.device("cuda", i)
+        g = torch.Generator(device=dev).manual_seed(i)
+        fmap = torch.randn(8, 14, 14, 256, device=dev, generator=g).to(dtype)
+        kernel = (torch.randn(3, 3, 256, 128, device=dev, generator=g)
+                  * 0.05).to(dtype)
+        bias = torch.randn(128, device=dev, generator=g)
+        x = (torch.randn(8, 5376, device=dev, generator=g) * 0.1).to(dtype)
+        w1 = (torch.randn(2688, 5376, device=dev, generator=g)
+              * 0.02).to(dtype)
+        b1 = torch.randn(2688, device=dev, generator=g)
+        w2 = (torch.randn(8, 2688, device=dev, generator=g) * 0.02).to(dtype)
+        b2 = torch.randn(8, device=dev, generator=g)
+        stem = (torch.randn(4, 16, 16, 64, device=dev, generator=g) * 3
+                + 0.5).to(dtype)
+        a = torch.rand(64, device=dev, generator=g) + 0.5
+        b = torch.randn(64, device=dev, generator=g)
+        keep = thead.philox_bits(7, 8, 2688, dev, 8 * i) >= \
+            thead.dropout_threshold(0.5)
+        pairs = [
+            (tquad.quadrant_process(fmap, kernel, bias),
+             tquad.quadrant_process_plain(fmap.float(), kernel.float(), bias)),
+            (tquad.quadrant_process_with_act(fmap, kernel, bias),
+             tquad.quadrant_process_plain(fmap.float(), kernel.float(), bias,
+                                          with_act=True)),
+            (thead.fusion_head(x, w1, b1, w2, b2),
+             thead.fusion_head_plain(x.float(), w1.float(), b1, w2.float(),
+                                     b2)),
+            (thead.fusion_head_with_h(x, w1, b1, w2, b2, rate=0.5, seed=7,
+                                      row_offset=8 * i),
+             thead.fusion_head_plain(x.float(), w1.float(), b1, w2.float(),
+                                     b2, 0.5, keep, with_h=True)),
+            (tbn.channel_stats(stem), tbn.channel_stats_plain(stem)),
+            (tbn.affine_relu(stem, a, b), tbn.affine_relu_plain(stem, a, b))]
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == 0
+        for got, want in pairs:
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for gt, wt in zip(got, want):
+                assert gt.device == dev
+                assert _rel_err(gt, wt) <= tol
+        with pytest.raises(ValueError, match="operand on"):
+            tquad.quadrant_process(fmap, kernel.to(0), bias)
+        with pytest.raises(ValueError, match="operand on"):
+            thead.fusion_head(x, w1.to(0), b1, w2, b2)
+        with pytest.raises(ValueError, match="operand on"):
+            tbn.affine_relu(stem, a.to(0), b)

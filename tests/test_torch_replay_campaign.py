@@ -159,6 +159,35 @@ def test_failed_run_is_an_error_row_and_listed(tmp_path):
     assert table["bands"] == {} and table["vs_jax"] == {}
 
 
+def test_data_parallel_row_trains_under_torchrun(tmp_path, monkeypatch):
+    """``--nproc 4`` trains a row as ``torchrun --nproc-per-node=4 -m
+    surya_tpu_torch train ... --mesh.data=4`` and records the ranks and
+    every rank's launches beside rank 0's result line."""
+    calls = []
+    by_rank = [{"quadrant": {"training": 3, "inference": 2}}] * 4
+    line = {"best_epoch": 0, "best_metric": 0.5,
+            "test": {"accuracy": 0.5, "count": 8}, "preempted": False,
+            "kernel_launches": by_rank[0],
+            "kernel_launches_by_rank": by_rank}
+
+    def run(args, **kw):
+        calls.append(args)
+        return type("Done", (), {"returncode": 0, "stderr": "",
+                                 "stdout": "epoch=0\n" + json.dumps(line)})
+
+    monkeypatch.setattr(replay.subprocess, "run", run)
+    name, preset, run_dir, ov = next(replay.jobs_for(
+        "spatial", str(tmp_path / "data"), 1, str(tmp_path / "out")))
+    row = replay.run_job(name, preset, run_dir, ov, device="cpu", nproc=4)
+    args = calls[0]
+    assert args[1:5] == ["-m", "torch.distributed.run", "--standalone",
+                         "--nproc-per-node=4"]
+    assert args[5:8] == ["-m", "surya_tpu_torch", "train"]
+    assert "--mesh.data=4" in args and "--train.seed=0" in args
+    assert row["ranks"] == 4 and row["kernel_launches_by_rank"] == by_rank
+    assert row["test"] == line["test"]
+
+
 def test_vs_jax_cpu_sets_the_cpu_bands_beside_the_tpu_band(tmp_path):
     """``diag/<side>`` runs (``tests/replay_diag.py``) become bands beside
     JAX's TPU band and the port's campaign band (a row cut short has
